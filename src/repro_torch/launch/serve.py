@@ -1,0 +1,178 @@
+"""Serving launcher of the PyTorch/CUDA port (counterpart of
+``repro.launch.serve`` for what the port serves).
+
+The model's MLP projections are binarised, Huffman-compressed into the
+WeightStore and rebuilt each step from the decode-tile cache (the decode
+kernel runs on misses); requests flow through the continuous-batching
+scheduler, whose every iteration is one ragged mixed step of prefill
+chunks and decode tokens over the KV page pools (the paged-attention
+kernel walks the page tables).  It prints the same summary lines as the
+reference launcher for what it supports.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --scale tiny --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --scale tiny --device cuda
+  PYTHONPATH=src python -m repro_torch.launch.serve --scale full \
+      --batch 4 --requests 8 --prompt-len 128 --gen 16 \
+      --prefill-chunk 64 --kv-page-size 16
+
+At ``--scale full`` registration compresses all 64 full-width MLP
+matrices on the host first (about 10 s each on the H100 machine).
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs import base as cfgs
+from repro_torch.models.transformer import init_params
+from repro_torch.runtime import Scheduler, ServeEngine
+from repro_torch.runtime.decode_cache import POLICIES
+
+TINY_OVERRIDES = dict(
+    num_layers=2, scan_repeats=2, prefix_kinds=(), suffix_kinds=(),
+    d_model=128, num_heads=4, num_kv_heads=2, head_dim=32, d_ff=256,
+    vocab_size=512, dtype="float32", window=64,
+)
+
+
+def tiny_config(arch: str):
+    """The reference's ``--scale tiny`` config for a dense arch."""
+    return cfgs.get_config(arch).scaled(**TINY_OVERRIDES)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="minitron-8b", choices=cfgs.PORTED)
+    ap.add_argument("--scale", choices=["tiny", "full"], default="tiny")
+    ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                    help="cuda runs the CUDA kernels; cpu their plain "
+                         "PyTorch versions")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=64)
+    ap.add_argument("--gen", type=int, default=32)
+    ap.add_argument("--requests", type=int, default=0,
+                    help="total requests to serve (default: one full batch)")
+    ap.add_argument("--cache-mb", type=float, default=None,
+                    help="decode-tile cache capacity in MiB (omit = "
+                         "unbounded; 0 = caching disabled)")
+    ap.add_argument("--policy", choices=sorted(POLICIES), default="lru",
+                    help="decode-cache eviction policy")
+    ap.add_argument("--attn-backend", choices=["cuda_paged"],
+                    default="cuda_paged",
+                    help="cuda_paged: the paged-attention kernel walks the "
+                         "page tables in place (the only backend ported)")
+    ap.add_argument("--prefill-chunk", type=int, default=16,
+                    help="prompt chunk size of the mixed step")
+    ap.add_argument("--prefill-budget", type=int, default=None,
+                    help="max prefill tokens per scheduler iteration "
+                         "(default: one chunk)")
+    ap.add_argument("--kv-page-size", type=int, default=16,
+                    help="tokens per KV page")
+    ap.add_argument("--kv-pages", type=int, default=None,
+                    help="page-pool size (default: fully backs every slot)")
+    ap.add_argument("--no-prefetch", action="store_true",
+                    help="disable next-layer tile prefetch")
+    ap.add_argument("--no-compress", action="store_true",
+                    help="uncompressed baseline on the same scheduler")
+    ap.add_argument("--log-every", type=int, default=16)
+    args = ap.parse_args(argv)
+
+    device = resolve_device(args.device)
+    cfg = tiny_config(args.arch) if args.scale == "tiny" \
+        else cfgs.get_config(args.arch)
+    n_requests = args.requests or args.batch
+    cache_bytes = None if args.cache_mb is None \
+        else int(args.cache_mb * 2 ** 20)
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    t0 = time.monotonic()
+    params = init_params(cfg, gen, device)
+    engine = ServeEngine(cfg, params, device=device,
+                         compress=not args.no_compress,
+                         cache_bytes=cache_bytes, cache_policy=args.policy,
+                         prefetch=not args.no_prefetch)
+    del params
+    if engine.compressed:
+        rep = engine.report
+        print(f"weight store: {rep['layers']} compressed MLP tensors, "
+              f"{rep['packed_bytes']} packed bytes -> "
+              f"{rep['stream_bytes']} stream bytes "
+              f"({rep['ratio_stream']:.3f}x), registered in "
+              f"{time.monotonic() - t0:.1f}s")
+    else:
+        print(f"weight store: serving {args.arch} uncompressed")
+
+    sched = Scheduler(engine, batch_size=args.batch,
+                      prefill_chunk=args.prefill_chunk,
+                      prefill_budget=args.prefill_budget,
+                      kv_page_size=args.kv_page_size,
+                      kv_pages=args.kv_pages,
+                      attn_backend=args.attn_backend,
+                      log_every=args.log_every)
+    rng = np.random.default_rng(0)
+    for _ in range(n_requests):
+        sched.submit(rng.integers(0, cfg.vocab_size, args.prompt_len),
+                     args.gen)
+    t0 = time.monotonic()
+    completed = sched.run()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    wall = time.monotonic() - t0
+
+    m = engine.metrics
+    assert len(completed) == n_requests
+    assert all(len(r.generated) == r.max_new_tokens for r in completed)
+    print(f"served {len(completed)} requests in {wall:.2f}s "
+          f"(continuous slots, batch {args.batch}, {m.prefills} prefills, "
+          f"device {device})")
+    ttfts = [r.first_token_latency() for r in completed]
+    ttft = sum(t for t in ttfts if t is not None) / max(len(ttfts), 1)
+    print(f"prefill: {m.prefill_s:.2f}s total "
+          f"(mean time-to-first-token {ttft * 1000:.0f} ms)")
+    for label, hist in (("ttft", m.ttft_hist), ("tpot", m.tpot_hist),
+                        ("e2e ", m.e2e_hist)):
+        if hist.n:
+            p50, p90, p99 = hist.percentiles(50, 90, 99)
+            print(f"{label}   : p50 {p50 * 1000:.1f} ms | "
+                  f"p90 {p90 * 1000:.1f} ms | p99 {p99 * 1000:.1f} ms "
+                  f"(n={hist.n})")
+    if m.prefill_chunks:
+        print(f"chunked prefill: {m.prefill_chunks} chunks of "
+              f"<= {args.prefill_chunk} tokens, "
+              f"{m.prefill_chunk_ms():.1f} ms/chunk, decode stalled "
+              f"{m.decode_stall_s:.2f}s behind chunks")
+    print(f"decode : {m.ms_per_token():.1f} ms/step "
+          f"({m.tokens_per_s():.1f} tok/s, "
+          f"occupancy {m.occupancy() * 100:.0f}%)")
+    if m.pages_total:
+        print(f"kv pages: {args.kv_page_size}-token pages, pool "
+              f"{m.pages_total}, mean occupancy "
+              f"{m.page_occupancy() * 100:.0f}%")
+        print(f"kv gather ({sched.attn_backend} backend): "
+              f"{m.kv_gather_bytes} bytes copied on the decode hot path, "
+              f"{m.kv_gather_bytes_avoided} avoided in-kernel")
+        print(f"prefill gather: {m.kv_prefill_gather_bytes} bytes copied "
+              f"installing prefilled caches, "
+              f"{m.kv_prefill_gather_bytes_avoided} avoided by "
+              f"mixed-step in-pool prefill")
+    if engine.compressed:
+        st = engine.cache.stats()
+        print(f"decode-tile cache ({st['policy']}): {st['hits']} hits / "
+              f"{st['misses']} misses / {st['evictions']} evictions")
+        print(f"cache hit-rate: {st['hit_rate'] * 100:.1f}%")
+        print(f"compressed bytes streamed: {st['bytes_streamed']}; "
+              f"bytes avoided by cache: {st['bytes_avoided']}")
+        if engine.store.prefetch_dispatched:
+            print(f"tile prefetch: {engine.store.prefetch_dispatched} "
+                  f"dispatched, {engine.store.prefetch_used} consumed")
+    print("sample token ids:", completed[0].generated[:16])
+    return completed
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,86 @@
+"""Model API: the entry points the runtime calls, and the cache-layout
+probe (port of the serving half of ``repro.models.api``)."""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+from repro_torch.models import transformer
+from repro_torch.tree import tree_leaves
+
+# the attention backends this port serves with: "cuda_paged" hands the page
+# pools and page tables to mixed_step, whose CUDA kernel walks the table.
+# The reference's "gathered" oracle backend is not ported yet.
+ATTN_BACKENDS = ("cuda_paged",)
+
+# block kinds whose caches can resume a prompt mid-prefill
+CHUNKABLE_KINDS = frozenset(
+    ("attn", "swa", "local", "global", "attn_local",
+     "mla_dense", "mla_moe", "swa_moe", "moe", "ssm", "rglru"))
+
+# block kinds the paged attention backend can serve
+PAGEABLE_KINDS = frozenset(
+    ("attn", "swa", "local", "global", "attn_local",
+     "mla_dense", "mla_moe", "swa_moe", "moe"))
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelAPI:
+    init_cache_specs: Callable[..., Any]     # (cfg, batch, max_len)
+    mixed_step: Callable[..., Any]
+    # (cfg, params, paged cache, table, tokens (S, Q), poss (S,),
+    #  q_lens (S,), *, paged_flags, page_size) -> (logits (S, Q, V), cache)
+
+
+def _kinds(cfg) -> tuple:
+    return (tuple(cfg.prefix_kinds) + tuple(cfg.scan_pattern)
+            + tuple(cfg.suffix_kinds))
+
+
+def supports_chunked_prefill(cfg) -> bool:
+    """True if every block resumes a prompt mid-cache and no multimodal
+    prefix is spliced into the prompt."""
+    if cfg.family in ("vlm", "audio"):
+        return False
+    return all(k in CHUNKABLE_KINDS for k in _kinds(cfg))
+
+
+def supports_paged_attention(cfg) -> bool:
+    """True if every block keeps an attention-style cache."""
+    if cfg.family == "audio":
+        return False
+    return all(k in PAGEABLE_KINDS for k in _kinds(cfg))
+
+
+def cache_layout(api: ModelAPI, cfg, slot_len: int):
+    """Probe the cache-spec factory for each leaf's memory role ->
+    ``(batch_axes, len_axes)``, aligned with the leaves of
+    ``api.init_cache_specs(cfg, 1, slot_len)``: the axis that scales with
+    the batch argument, and the axis that scales with cache length (None
+    for leaves that do not, which are not pageable)."""
+    leaves_a = tree_leaves(api.init_cache_specs(cfg, 1, slot_len))
+    leaves_l = tree_leaves(api.init_cache_specs(cfg, 1, 2 * slot_len))
+    leaves_b = tree_leaves(api.init_cache_specs(cfg, 2, slot_len))
+    batch_axes, len_axes = [], []
+    for sa, sl, sb in zip(leaves_a, leaves_l, leaves_b):
+        bdiff = [i for i, (a, b) in enumerate(zip(sa.shape, sb.shape))
+                 if a != b]
+        assert len(bdiff) == 1 and sa.shape[bdiff[0]] == 1, \
+            (sa.shape, sb.shape)
+        batch_axes.append(bdiff[0])
+        if sa.shape == sl.shape:
+            len_axes.append(None)
+            continue
+        ldiff = [i for i, (a, b) in enumerate(zip(sa.shape, sl.shape))
+                 if a != b]
+        assert len(ldiff) == 1 and sa.shape[ldiff[0]] == slot_len, \
+            (sa.shape, sl.shape)
+        len_axes.append(ldiff[0])
+    return tuple(batch_axes), tuple(len_axes)
+
+
+def get_model(cfg) -> ModelAPI:
+    transformer.check_supported(cfg)
+    return ModelAPI(init_cache_specs=transformer.init_cache_specs,
+                    mixed_step=transformer.mixed_step)

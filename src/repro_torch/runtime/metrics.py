@@ -1,0 +1,202 @@
+"""Serving counters and the periodic stats line (port of
+``repro.runtime.metrics`` for the paths this port serves).
+
+Same names and semantics as the reference: ``slot_steps`` /
+``capacity_steps`` give occupancy, the chunk counters track chunked
+prefill, the page gauges track the KV pool, and the KV gather counters
+record the copies the in-kernel backend avoided (they must read zero
+moved, on the prefill and the decode path).  Codec, prefix-sharing and
+speculation counters, and the Prometheus registry, come with those
+features in later slices.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+
+from repro_torch.runtime.telemetry import Histogram
+
+
+def _fmt_bytes(n: float) -> str:
+    for unit in ("B", "KB", "MB", "GB", "TB"):
+        if abs(n) < 1024.0 or unit == "TB":
+            return f"{n:.1f} {unit}"
+        n /= 1024.0
+    return f"{n:.1f} TB"
+
+
+@dataclasses.dataclass
+class ServeMetrics:
+    tokens_generated: int = 0
+    requests_completed: int = 0
+    requests_admitted: int = 0
+    prefills: int = 0
+    decode_steps: int = 0
+    slot_steps: int = 0        # sum over decode steps of active slots
+    capacity_steps: int = 0    # sum over decode steps of total slots
+    prefill_s: float = 0.0
+    decode_s: float = 0.0
+    prefill_chunks: int = 0            # chunked-prefill chunk count
+    prefill_chunk_tokens: int = 0      # prompt tokens pushed through chunks
+    decode_stall_s: float = 0.0        # chunk time while decoders waited
+    pages_in_use: int = 0              # KV page gauges (last decode step)
+    pages_total: int = 0
+    page_use_steps: int = 0            # sum over steps of pages_in_use
+    page_capacity_steps: int = 0       # sum over steps of pages_total
+    kv_gather_bytes: int = 0           # decode-path KV copies (0 in-kernel)
+    kv_gather_bytes_avoided: int = 0   # copies the in-kernel backend skipped
+    kv_prefill_gather_bytes: int = 0   # prefill-path install copies
+    kv_prefill_gather_bytes_avoided: int = 0  # install copies skipped
+    _t0: float = dataclasses.field(default_factory=time.monotonic)
+    ttft_hist: Histogram = dataclasses.field(default_factory=Histogram)
+    tpot_hist: Histogram = dataclasses.field(default_factory=Histogram)
+    e2e_hist: Histogram = dataclasses.field(default_factory=Histogram)
+    chunk_hist: Histogram = dataclasses.field(default_factory=Histogram)
+    step_hist: Histogram = dataclasses.field(default_factory=Histogram)
+    _win: dict = dataclasses.field(default_factory=dict)
+
+    # -- recording ---------------------------------------------------------
+    def record_admit(self, n_requests: int, dt: float,
+                     tokens: int = 0) -> None:
+        self.requests_admitted += n_requests
+        self.prefills += n_requests
+        self.prefill_s += dt
+        self.tokens_generated += tokens
+
+    def record_prefill_chunk(self, n_tokens: int, dt: float,
+                             stalled: bool = False) -> None:
+        self.prefill_chunks += 1
+        self.prefill_chunk_tokens += n_tokens
+        self.prefill_s += dt
+        self.chunk_hist.record(dt)
+        if stalled:
+            self.decode_stall_s += dt
+
+    def record_pages(self, in_use: int, total: int) -> None:
+        self.pages_in_use = in_use
+        self.pages_total = total
+        self.page_use_steps += in_use
+        self.page_capacity_steps += total
+
+    def record_kv_gather(self, moved: int, avoided: int) -> None:
+        self.kv_gather_bytes += moved
+        self.kv_gather_bytes_avoided += avoided
+
+    def record_prefill_gather(self, moved: int, avoided: int) -> None:
+        self.kv_prefill_gather_bytes += moved
+        self.kv_prefill_gather_bytes_avoided += avoided
+
+    def record_decode_step(self, n_tokens: int, dt: float,
+                           n_slots: int = 0) -> None:
+        self.decode_steps += 1
+        self.tokens_generated += n_tokens
+        self.slot_steps += n_tokens
+        self.capacity_steps += n_slots
+        self.decode_s += dt
+        self.step_hist.record(dt)
+
+    def record_completed(self, n_requests: int) -> None:
+        self.requests_completed += n_requests
+
+    def record_ttft(self, dt: float) -> None:
+        self.ttft_hist.record(dt)
+
+    def record_request_done(self, req) -> None:
+        if req.t_done is None or req.t_submit is None:
+            return
+        self.e2e_hist.record(req.t_done - req.t_submit)
+        if req.t_first is not None and len(req.generated) > 1:
+            self.tpot_hist.record((req.t_done - req.t_first)
+                                  / (len(req.generated) - 1))
+
+    # -- derived -----------------------------------------------------------
+    def tokens_per_s(self) -> float:
+        """Decode throughput: decode-step tokens over decode time."""
+        return self.slot_steps / self.decode_s if self.decode_s > 0 else 0.0
+
+    def ms_per_token(self) -> float:
+        steps = self.decode_steps
+        return self.decode_s / steps * 1000.0 if steps else 0.0
+
+    def occupancy(self) -> float:
+        return self.slot_steps / self.capacity_steps \
+            if self.capacity_steps else 0.0
+
+    def page_occupancy(self) -> float:
+        return self.page_use_steps / self.page_capacity_steps \
+            if self.page_capacity_steps else 0.0
+
+    def prefill_chunk_ms(self) -> float:
+        return self.prefill_s / self.prefill_chunks * 1000.0 \
+            if self.prefill_chunks else 0.0
+
+    # -- interval windows --------------------------------------------------
+    _RATE_FIELDS = ("tokens_generated", "slot_steps", "decode_steps",
+                    "capacity_steps", "decode_s", "prefill_s",
+                    "requests_completed", "requests_admitted")
+
+    def _sample(self, cache=None) -> dict:
+        snap = {f: getattr(self, f) for f in self._RATE_FIELDS}
+        snap["cache_hits"] = cache.hits if cache is not None else 0
+        snap["cache_misses"] = cache.misses if cache is not None else 0
+        snap["t"] = time.monotonic()
+        return snap
+
+    def window(self, cache=None) -> dict:
+        """Counter deltas since the previous call (the first spans the
+        metrics' lifetime); the baseline advances."""
+        cur = self._sample(cache)
+        delta = {k: cur[k] - self._win.get(k, 0) for k in cur}
+        if not self._win:
+            delta["t"] = cur["t"] - self._t0
+        self._win.clear()
+        self._win.update(cur)
+        return delta
+
+    def stats_line(self, cache=None) -> str:
+        w = self.window(cache)
+        tok_s = w["slot_steps"] / w["decode_s"] if w["decode_s"] > 0 else 0.0
+        ms_step = w["decode_s"] / w["decode_steps"] * 1000.0 \
+            if w["decode_steps"] else 0.0
+        parts = [
+            f"tokens {self.tokens_generated}",
+            f"{tok_s:.1f} tok/s",
+            f"{ms_step:.1f} ms/step",
+            f"reqs {self.requests_completed}/{self.requests_admitted}",
+        ]
+        if w["capacity_steps"]:
+            parts.append(
+                f"occupancy "
+                f"{w['slot_steps'] / w['capacity_steps'] * 100:.0f}%")
+        if self.prefill_chunks:
+            parts.append(f"chunks {self.prefill_chunks} "
+                         f"({self.prefill_chunk_ms():.1f} ms, "
+                         f"stall {self.decode_stall_s:.2f}s)")
+        if self.pages_total:
+            parts.append(f"pages {self.pages_in_use}/{self.pages_total} "
+                         f"({self.page_occupancy() * 100:.0f}% mean)")
+        if self.kv_gather_bytes or self.kv_gather_bytes_avoided:
+            parts.append(
+                f"kv gather {_fmt_bytes(self.kv_gather_bytes)} "
+                f"(avoided {_fmt_bytes(self.kv_gather_bytes_avoided)})")
+        if self.kv_prefill_gather_bytes or \
+                self.kv_prefill_gather_bytes_avoided:
+            parts.append(
+                f"prefill gather "
+                f"{_fmt_bytes(self.kv_prefill_gather_bytes)} "
+                f"(avoided "
+                f"{_fmt_bytes(self.kv_prefill_gather_bytes_avoided)})")
+        if self.ttft_hist.n:
+            p50, p99 = self.ttft_hist.percentiles(50, 99)
+            parts.append(f"ttft p50 {p50 * 1000:.0f}ms p99 {p99 * 1000:.0f}ms")
+        if self.tpot_hist.n:
+            p50, p99 = self.tpot_hist.percentiles(50, 99)
+            parts.append(f"tpot p50 {p50 * 1000:.1f}ms p99 {p99 * 1000:.1f}ms")
+        if cache is not None:
+            acc = w["cache_hits"] + w["cache_misses"]
+            rate = w["cache_hits"] / acc if acc else cache.hit_rate()
+            parts.append(f"cache hit-rate {rate * 100:.1f}%")
+            parts.append(f"streamed {_fmt_bytes(cache.bytes_streamed)}, "
+                         f"avoided {_fmt_bytes(cache.bytes_avoided)}")
+        return " | ".join(parts)
