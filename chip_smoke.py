@@ -5,14 +5,26 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernels from ``src/repro_torch/csrc`` with nvcc,
-holds each kernel against its plain PyTorch version on the card at the
-shapes the serving path gives it, then serves minitron-8b at its
-published widths (depth cut to 2 layers) through ``ServeEngine`` and
-``Scheduler`` on the ``cuda_paged`` backend, and checks that both kernels
-were launched by that run, that every request completed with finite
-logits, that a second run gives the same tokens, and that a small model
-served on the card gives the same tokens as on the CPU.
+It builds the port's CUDA kernels from ``src/repro_torch/csrc`` with nvcc
+(one nvcc per source, all started together) and drives two paths:
+
+* serving: holds the Huffman-decode and paged-attention kernels against
+  their plain PyTorch versions at serving shapes, serves minitron-8b at
+  its published widths (depth cut to 2 layers) through ``ServeEngine``
+  and ``Scheduler`` on the ``cuda_paged`` backend, and checks that both
+  kernels were launched by that run, that every request completed, that
+  a second run gives the same tokens, that ``WeightStore.fused_operands``
+  on a full-width MLP matrix gives the materialised weights' binary
+  product, and that a small model served on the card gives the CPU's
+  tokens;
+* the paper's BNN: holds the binarize-pack, xnor-popcount contraction and
+  fused Huffman-decode + contraction kernels against their plain versions
+  bit for bit at every ReActNet-A block shape at batch 32 (and ragged
+  shapes), then classifies 32 images of 224x224 through ReActNet-A at
+  full width in ``ste``, ``packed`` and ``compressed`` conv modes,
+  checks identical logits and each kernel's launches, profiles the
+  compressed forward, and checks a small ReActNet's logits on card and
+  CPU.
 
 The last two lines of standard output are one JSON object per kernel
 (``{"kernels": [...]}``) and ``{"ok": true, "device": {...}}``.  Any
@@ -22,6 +34,7 @@ Peak rates for the roofline bounds are the H100 SXM data-sheet numbers.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -36,20 +49,32 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 
 from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.core import bitpack  # noqa: E402
-from repro_torch.kernels import _build, ref  # noqa: E402
-from repro_torch.kernels.huffman_decode import huffman_decode  # noqa: E402
+from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.kernels.binarize_pack import binarize_pack  # noqa: E402
+from repro_torch.kernels.binary_contraction import \
+    binary_contraction  # noqa: E402
+from repro_torch.kernels.fused_decode_contraction import \
+    fused_decode_matmul  # noqa: E402
+from repro_torch.kernels.huffman_decode import (  # noqa: E402
+    flat_table, huffman_decode, pack_bitplane_tables)
 from repro_torch.kernels.paged_attention import (  # noqa: E402
     paged_mixed_attention, paged_mixed_attention_plain)
 from repro_torch.launch.serve import tiny_config  # noqa: E402
+from repro_torch.models import reactnet as rn  # noqa: E402
 from repro_torch.models.transformer import init_params  # noqa: E402
 from repro_torch.runtime import Scheduler, ServeEngine, ServeMetrics  # noqa: E402
+from repro_torch.tree import tree_map  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 F32_OPS_PER_S = 67e12            # H100 SXM CUDA cores, an FMA counted as 2
 # int32 issue rate: 132 SMs x 64 INT32 lanes x 1.98 GHz boost, one op per
 # lane per clock -- a quarter of the f32 rate (half the lanes, no FMA pair)
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
-DECODE_OPS_PER_CODE = 25         # integer ops per decoded code (see .cu)
+# __popc issue rate: 16 per SM per clock on compute capability 9.0 (the
+# CUDA C++ Programming Guide's arithmetic-instruction throughput table), a
+# quarter of the int32 rate: 132 SMs x 16 x 1.98 GHz boost
+POPC_OPS_PER_S = 132 * 16 * 1.98e9
+DECODE_OPS_PER_CODE = 25         # integer ops per decoded code (see .cuh)
 ATTN_TOL = 1e-4                  # kernel vs plain, bf16 pools: both score
 #                                  in f32 from the same bf16 values, so they
 #                                  differ in f32 summation order and the
@@ -61,6 +86,12 @@ ATTN_SOFTCAP = 4.0               # near the score scale, so a kernel that
 SERVE_LAYERS = 2
 SERVE_BATCH, SERVE_CHUNK, SERVE_PAGE, SERVE_GEN = 4, 64, 16, 16
 SERVE_PROMPTS = np.linspace(32, 256, 8).astype(int)
+
+# ReActNet-A phase: the full model at its published shapes
+RN_BATCH = 32
+RN_TOL = 1e-4                    # small model, card vs CPU: with exact
+#                                  params only the head's dot differs
+EXACT_VAR = 1.0 - 1e-5           # float32(var) + 1e-5 == 1.0: BN identity
 
 
 def fail(msg: str) -> None:
@@ -394,6 +425,418 @@ def phase_small_reference(dev) -> None:
           f"cpu")
 
 
+def phase_fused_operands(engine, dev) -> None:
+    """``WeightStore.fused_operands`` on one full-width MLP matrix: the
+    fused decode+GEMM of a real activation equals sign(x) @ the signs of
+    the materialised weights (both from the same cache-served tiles)."""
+    t0 = time.monotonic()
+    words, tables, meta = engine.store.fused_operands(engine.model_id,
+                                                      "scan/b0/mlp/up")
+    host_s = time.monotonic() - t0
+    gen = torch.Generator(device=dev).manual_seed(4)
+    x = torch.randn((16, meta["k_true"]), generator=gen, device=dev)
+    got = ops.compressed_binary_matmul(x, words, tables, k_true=meta["k_true"],
+                                       n_true=meta["n_true"],
+                                       codes=meta["codes"])
+    w = engine.store.materialize(engine.model_id)["scan"]["b0"]["mlp"]["up"][0]
+    want = torch.where(x >= 0, 1.0, -1.0) @ torch.where(w.float() >= 0, 1.0,
+                                                        -1.0)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        fail(f"fused_operands: fused GEMM differs from the materialised "
+             f"weights' binary product at {int((got != want).sum())} of "
+             f"{got.numel()} outputs")
+    print(f"fused_operands: scan/b0/mlp/up ({meta['n_true']}x{meta['k_true']}"
+          f" bits, words {tuple(words.shape)}) built in {host_s:.1f}s on the "
+          f"host; compressed_binary_matmul of a (16, {meta['k_true']}) "
+          f"activation == sign(x) @ materialised signs")
+
+
+def _rn_blocks(cfg=rn.CONFIG):
+    """(cin, cout, stride, output side) of every ReActNet-A block."""
+    side = -(-cfg.image_size // 2)                   # after the stride-2 stem
+    c, out = cfg.width, []
+    for mult, stride in cfg.blocks:
+        side = (side - 1) // stride + 1
+        out.append((c, c * mult, stride, side))
+        c *= mult
+    return out
+
+
+class _KernelSum:
+    """One kernel's times, summed over the launches of one forward."""
+
+    def __init__(self):
+        self.ms = self.plain_ms = self.lib_ms = self.lib_f32_ms = 0.0
+        self.t_bytes = self.t_ops = self.bound_ms = 0.0
+        self.launches = 0
+
+    def add(self, ms, plain_ms, nbytes, t_ops, lib=(0.0, 0.0)):
+        """One launch; ``t_ops`` in seconds -> the launch's bound in ms."""
+        tb, to = nbytes / HBM_BYTES_PER_S * 1e3, t_ops * 1e3
+        self.ms += ms
+        self.plain_ms += plain_ms
+        self.lib_ms += lib[0]
+        self.lib_f32_ms += lib[1]
+        self.t_bytes += tb
+        self.t_ops += to
+        self.bound_ms += max(tb, to)
+        self.launches += 1
+        return max(tb, to)
+
+    def row(self, name, source, replaces, library):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "max_abs_err": 0.0, "ms": self.ms,
+                "plain_ms": self.plain_ms, "bound_ms": self.bound_ms,
+                "bound_by": "bytes" if self.t_bytes >= self.t_ops
+                else "operations",
+                "library_ms": self.lib_ms if library else None}
+
+
+def _real(shape, gen, dev):
+    """Real activations with some exact zeros (x >= 0 is bit 1 there)."""
+    x = torch.randn(shape, generator=gen, device=dev)
+    return torch.where(torch.rand(shape, generator=gen, device=dev) < 0.02,
+                       0.0, x)
+
+
+def _same(name, got, want) -> None:
+    torch.cuda.synchronize()
+    if got.shape != want.shape or not torch.equal(got, want):
+        bad = int((got != want).sum()) if got.shape == want.shape else "all"
+        fail(f"{name}: kernel differs from its plain version at {bad} of "
+             f"{want.numel()} outputs ({tuple(got.shape)})")
+
+
+def _time_pack(acc, x, label):
+    got = binarize_pack(x)
+    _same(f"binarize_pack {label}", got, ref.binarize_pack(x))
+    m, k = x.shape
+    acc.add(time_ms(lambda: binarize_pack(x), iters=20),
+            time_ms(lambda: ref.binarize_pack(x), iters=1, warmup=1),
+            m * k * 4 + got.numel() * 4, m * k / F32_OPS_PER_S)
+    return got
+
+
+def _time_contraction(acc, xw, ww, k_true, xs, ws, label):
+    """Kernel vs plain, and torch._int_mm on the +-1 int8 operands (exact
+    in int32) and the f32 matmul as yardsticks."""
+    got = binary_contraction(xw, ww, k_true=k_true)
+    _same(f"binary_contraction {label}", got,
+          ref.popcount_dot(xw, ww, k_true))
+    xi, wi = xs.to(torch.int8), ws.to(torch.int8).T.contiguous()
+    lib = torch._int_mm(xi, wi)
+    _same(f"torch._int_mm yardstick {label}", got, lib)
+    (m, kw), n = xw.shape, ww.shape[0]
+    bms = acc.add(time_ms(lambda: binary_contraction(xw, ww, k_true=k_true),
+                          iters=20),
+                  time_ms(lambda: ref.popcount_dot(xw, ww, k_true), iters=1,
+                          warmup=1),
+                  (m + n) * kw * 4 + m * n * 4, m * n * kw / POPC_OPS_PER_S,
+                  lib=(time_ms(lambda: torch._int_mm(xi, wi), iters=20),
+                       time_ms(lambda: xs @ ws.T, iters=20)))
+    return got, bms
+
+
+def _cudnn_conv_err(cin, stride, side, gen, dev) -> float:
+    """Max distance from the exact integers of cuDNN's f32 conv of a
+    block's +-1 input and weights (TF32 off): why the ``ste`` mode runs its
+    binary convs as an im2col GEMM (exact) and not as ``F.conv2d``."""
+    x = torch.where(_real((RN_BATCH, side * stride, side * stride, cin), gen,
+                          dev) >= 0, 1.0, -1.0)
+    w = torch.where(_real((cin, cin, 3, 3), gen, dev) >= 0, 1.0, -1.0)
+    conv = torch.nn.functional.conv2d(torch.nn.functional.pad(
+        x.permute(0, 3, 1, 2), (1, 1, 1, 1), value=-1.0), w, stride=stride)
+    exact = ops.binary_conv3x3(x, w, stride=stride).permute(0, 3, 1, 2)
+    return float((conv - exact).abs().max())
+
+
+def phase_binary_kernels(dev, comp) -> list:
+    """The three BNN kernels against their plain versions, bit for bit,
+    at the shapes one ReActNet-A forward at batch 32 gives them (random
+    activations, the model's own compressed 3x3 weights), plus ragged
+    shapes; timed with CUDA events beside their bounds."""
+    gen = torch.Generator(device=dev).manual_seed(2)
+    pack, contr, fused = _KernelSum(), _KernelSum(), _KernelSum()
+    for i, ((cin, cout, stride, side), (words, tables, meta)) in enumerate(
+            zip(_rn_blocks(), comp)):
+        m = RN_BATCH * side * side
+        cols = torch.where(_real((m, 9 * cin), gen, dev) >= 0, 1.0, -1.0)
+        acts = torch.where(_real((m, cin), gen, dev) >= 0, 1.0, -1.0)
+        w3 = torch.where(_real((cin, 9 * cin), gen, dev) >= 0, 1.0, -1.0)
+        w1 = torch.where(_real((cout, cin), gen, dev) >= 0, 1.0, -1.0)
+        packed = {name: _time_pack(pack, x, f"block {i} {name}")
+                  for name, x in (("im2col", cols), ("w3", w3),
+                                  ("act1x1", acts), ("w1", w1))}
+        _, b3 = _time_contraction(
+            contr, packed["im2col"].reshape(m, -1),
+            packed["w3"].reshape(cin, -1), 9 * cin, cols, w3, f"block {i} 3x3")
+        _, b1 = _time_contraction(
+            contr, packed["act1x1"].reshape(m, -1),
+            packed["w1"].reshape(cout, -1), cin, acts, w1, f"block {i} 1x1")
+        xw = packed["im2col"]
+        kw = dict(k_true=meta["k_true"], n_true=meta["n_true"],
+                  codes=meta["codes"])
+        got = fused_decode_matmul(words, xw, tables, **kw)
+        _same(f"fused_decode_matmul block {i}", got, ref.fused_decode_matmul(
+            words, xw, flat_table(tables, dev), **kw))
+        lut = torch.from_numpy(pack_bitplane_tables(
+            tables.cpu().numpy()).view(np.int32)).to(dev)
+        _same(f"fused_decode_matmul block {i} (bit-plane table)",
+              fused_decode_matmul(words, xw, lut, **kw), got)
+        nb, gb = words.shape[:2]
+        bf = fused.add(
+            time_ms(lambda: fused_decode_matmul(words, xw, tables, **kw),
+                    iters=20),
+            time_ms(lambda: ref.fused_decode_matmul(
+                words, xw, flat_table(tables, dev), **kw), iters=1, warmup=1),
+            words.numel() * 4 + xw.numel() * 4 + 160 * 4 + got.numel() * 4,
+            m * cin * gb * 9 / POPC_OPS_PER_S
+            + nb * gb * meta["codes"] * 128 * DECODE_OPS_PER_CODE
+            / INT32_OPS_PER_S)
+        cudnn_err = _cudnn_conv_err(cin, stride, side, gen, dev)
+        print(f"  block {i:2d}: M={m} 3x3 K={9 * cin} N={cin}, 1x1 K={cin} "
+              f"N={cout}; bounds 3x3 {b3:.4f} / 1x1 {b1:.4f} / fused "
+              f"{bf:.4f} ms; cuDNN f32 conv of +-1 operands off the "
+              f"integers by {cudnn_err:.3e}")
+    # ragged shapes: K not a multiple of 288 (nor of 9), N not of 32, M = 1
+    for m, k in ((1, 1), (3, 287), (37, 289), (1, 1000)):
+        x = _real((m, k), gen, dev)
+        _same(f"binarize_pack ({m}, {k})", binarize_pack(x),
+              ref.binarize_pack(x))
+    for m, n, k in ((1, 1, 9), (1, 33, 100), (65, 70, 577)):
+        xw = binarize_pack(_real((m, k), gen, dev))
+        w_bits = (torch.rand((n, k), generator=gen, device=dev) < 0.2)
+        ww = binarize_pack(w_bits.float() - 0.5)
+        _same(f"binary_contraction ({m}, {n}, {k})",
+              binary_contraction(xw.reshape(m, -1), ww.reshape(n, -1),
+                                 k_true=k),
+              ref.popcount_dot(xw, ww, k))
+        for codes in (8, 16, 32):
+            for gather in ("onehot", "bitplane"):
+                words, tables, meta = ops.prepare_compressed_gemm(
+                    w_bits.cpu().numpy().astype(np.uint8), cluster=True,
+                    gather=gather, codes=codes, device=dev)
+                kw = dict(k_true=k, n_true=n, codes=codes)
+                _same(f"fused_decode_matmul ({m}, {n}, {k}) codes {codes} "
+                      f"{gather}", fused_decode_matmul(words, xw, tables, **kw),
+                      ref.fused_decode_matmul(
+                          words, xw, flat_table(tables, dev), **kw))
+    print(f"binary kernels: bit-exact vs their plain versions at all 13 "
+          f"ReActNet-A block shapes at batch {RN_BATCH} (fused: both table "
+          f"forms) and on ragged shapes; torch._int_mm on +-1 int8 gives "
+          f"the contraction's integers too")
+    for name, acc, extra in (
+            ("binarize_pack", pack, ""),
+            ("binary_contraction", contr,
+             f", torch._int_mm {contr.lib_ms:.4f} ms, f32 matmul "
+             f"{contr.lib_f32_ms:.4f} ms"),
+            ("fused_decode_matmul", fused, "")):
+        print(f"{name}: {acc.launches} launches of one forward: kernel "
+              f"{acc.ms:.4f} ms, plain {acc.plain_ms:.4f} ms, bound "
+              f"{acc.bound_ms:.4f} ms (bytes {acc.t_bytes:.4f}, operations "
+              f"{acc.t_ops:.4f}){extra}")
+    rows = [
+        pack.row("binarize_pack", "src/repro_torch/csrc/binarize_pack.cu",
+                 "src/repro/kernels/binarize_pack.py:31", library=False),
+        contr.row("binary_contraction",
+                  "src/repro_torch/csrc/binary_contraction.cu",
+                  "src/repro/kernels/binary_contraction.py:49", library=True),
+        fused.row("fused_decode_matmul",
+                  "src/repro_torch/csrc/fused_decode_contraction.cu",
+                  "src/repro/kernels/fused_decode_contraction.py:80",
+                  library=False)]
+    rows[0]["shape"] = (f"52 launches of a packed forward (im2col, w3, 1x1 "
+                        f"activations, w1 of 13 blocks), batch {RN_BATCH}")
+    rows[1]["shape"] = "26 launches of a packed forward (13 3x3 + 13 1x1)"
+    rows[1]["library_f32_ms"] = contr.lib_f32_ms
+    rows[2]["shape"] = "13 launches of a compressed forward (3x3 convs)"
+    return rows
+
+
+def setup_reactnet(dev):
+    """ReActNet-A at its published shapes, random weights from seed 0, 32
+    images from seed 0, and its 13 3x3 weights compressed on the host
+    (``cluster=False``: lossless)."""
+    cfg = rn.CONFIG
+    params = rn.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            dev)
+    images = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (RN_BATCH, cfg.image_size, cfg.image_size, 3)).astype(
+            np.float32)).to(dev)
+    t0 = time.monotonic()
+    comp = rn.prepare_compressed(params, cluster=False)
+    print(f"reactnet-A: width {cfg.width}, {len(cfg.blocks)} blocks, "
+          f"{cfg.image_size}x{cfg.image_size}, {cfg.num_classes} classes, "
+          f"{cfg.dtype}, random weights from seed 0, batch {RN_BATCH}; 13 "
+          f"3x3 weights compressed (cluster=False) in "
+          f"{time.monotonic() - t0:.2f}s on the host; {_ratios(comp)}")
+    return params, images, comp
+
+
+def _rn_counts() -> dict:
+    return {"binarize_pack": binarize_pack.launches,
+            "binary_contraction": binary_contraction.launches,
+            "fused_decode_matmul": fused_decode_matmul.launches}
+
+
+RN_EXPECT = {   # launches of one forward per conv mode (13 blocks)
+    "ste": {"binarize_pack": 0, "binary_contraction": 0,
+            "fused_decode_matmul": 0},
+    "packed": {"binarize_pack": 52, "binary_contraction": 26,
+               "fused_decode_matmul": 0},
+    "compressed": {"binarize_pack": 39, "binary_contraction": 13,
+                   "fused_decode_matmul": 13},
+}
+
+
+def phase_reactnet(dev, params, images, comp) -> dict:
+    """ReActNet-A at full width on 32 images in every conv mode: identical
+    logits, the kernels' launches, warm ms per forward; returns the
+    compressed forward's launches (the paper's path)."""
+    logits, launches = {}, {}
+    for mode in ("ste", "packed", "compressed"):
+        cfg = dataclasses.replace(rn.CONFIG, conv_mode=mode)
+        c = comp if mode == "compressed" else None
+        binarize_pack.launches = binary_contraction.launches = 0
+        fused_decode_matmul.launches = 0
+        out = rn.forward(cfg, params, images, compressed=c)
+        torch.cuda.synchronize()
+        launches[mode] = _rn_counts()
+        if launches[mode] != RN_EXPECT[mode]:
+            fail(f"ReActNet {mode}: launches {launches[mode]}, expected "
+                 f"{RN_EXPECT[mode]}")
+        if out.shape != (RN_BATCH, 1000) or not torch.isfinite(out).all():
+            fail(f"ReActNet {mode}: logits {tuple(out.shape)} not finite")
+        logits[mode] = out
+        t0 = time.monotonic()
+        for _ in range(3):
+            rn.forward(cfg, params, images, compressed=c)
+        torch.cuda.synchronize()
+        ms = (time.monotonic() - t0) / 3 * 1e3
+        print(f"reactnet {mode}: {ms:.2f} ms per forward of {RN_BATCH} "
+              f"images ({RN_BATCH / ms * 1e3:.1f} images/s, warm, host clock "
+              f"after synchronize); launches {launches[mode]}")
+    pairs = (("packed", "ste"), ("compressed", "ste"),
+             ("compressed", "packed"))
+    diff = {f"{a} vs {b}": float((logits[a] - logits[b]).abs().max())
+            for a, b in pairs if not torch.equal(logits[a], logits[b])}
+    if diff:
+        fail(f"ReActNet logits differ between modes (max abs): {diff}")
+    print(f"reactnet: logits of ste, packed and compressed (cluster=False) "
+          f"bit-identical; argmax {logits['ste'].argmax(-1)[:8].tolist()}...")
+    profile_reactnet(params, images, comp)
+    t0 = time.monotonic()
+    comp_c = rn.prepare_compressed(params, cluster=True)
+    host_s = time.monotonic() - t0
+    out = rn.forward(dataclasses.replace(rn.CONFIG, conv_mode="compressed"),
+                     params, images, compressed=comp_c)
+    agree = float((out.argmax(-1) == logits["ste"].argmax(-1)).float().mean())
+    print(f"reactnet compressed cluster=True: prepared in {host_s:.2f}s; "
+          f"{_ratios(comp_c)}; argmax agreement with ste {agree:.4f}, max "
+          f"|logit - ste| {float((out - logits['ste']).abs().max()):.4f} "
+          f"(random weights: the ste argmax takes "
+          f"{logits['ste'].argmax(-1).unique().numel()} distinct classes "
+          f"over the batch)")
+    return launches["compressed"]
+
+
+def _ratios(comp) -> str:
+    """Compression ratios over the 13 3x3 weights, weighted by bits."""
+    bits = [m["n_true"] * m["k_true"] for _, _, m in comp]
+    rs = sum(b * m["ratio_stream"] for b, (_, _, m) in zip(bits, comp))
+    rt = sum(b * m["ratio_tiled"] for b, (_, _, m) in zip(bits, comp))
+    return (f"ratio_stream {rs / sum(bits):.4f}, ratio_tiled "
+            f"{rt / sum(bits):.4f} (bit-weighted over 13 3x3 weights; "
+            f"per block stream "
+            f"{[round(m['ratio_stream'], 3) for _, _, m in comp]})")
+
+
+def profile_reactnet(params, images, comp) -> None:
+    """Where a warm compressed forward's time goes: device busy share of
+    the wall time and the top kernels by device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    cfg = dataclasses.replace(rn.CONFIG, conv_mode="compressed")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        rn.forward(cfg, params, images, compressed=comp)
+        torch.cuda.synchronize()
+        wall_ms = (time.monotonic() - t0) * 1e3
+    averages = prof.key_averages()
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in averages
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    if not rows:
+        print("profile reactnet: device time not measured (the profiler "
+              "saw no CUDA kernels)")
+        return
+    busy = sum(ms for _, ms, _ in rows)
+    print(f"profile reactnet (compressed, warm): wall {wall_ms:.1f} ms; "
+          f"device busy {busy:.1f} ms = {busy / wall_ms * 100:.1f}% of wall "
+          f"(idle {100 - busy / wall_ms * 100:.1f}%); kernels by device time:")
+    for key, ms, n in sorted(rows, key=lambda r: -r[1])[:10]:
+        print(f"  {ms:9.3f} ms  x{n:<5d} {key[:90]}")
+    # the same device time by the aten op that launched it (self time, so
+    # nested ops are not counted twice)
+    ops_rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+                for e in averages
+                if e.device_type == DeviceType.CPU
+                and e.self_device_time_total > 0]
+    print("  by launching op (self device time):")
+    for key, ms, n in sorted(ops_rows, key=lambda r: -r[1])[:10]:
+        print(f"  {ms:9.3f} ms  x{n:<5d} {key[:90]}")
+
+
+def _exact_reactnet(cfg, seed):
+    """A small ReActNet on the CPU whose float arithmetic is exact before
+    the head: +-1 binary weights (alpha = 1), stem weights and images on a
+    1/16 and 1/8 grid, BN variances with var + 1e-5 == 1 (BN the
+    identity).  An activation within rounding of the RSign threshold can
+    otherwise binarise differently on the two devices."""
+    params = rn.init_params(cfg, torch.Generator().manual_seed(seed), "cpu")
+    params["stem"]["w"] = torch.round(params["stem"]["w"] * 16) / 16
+    bns = [params["stem"]["bn"]]
+    for blk in params["blocks"]:
+        blk["w3"] = torch.where(blk["w3"] >= 0, 1.0, -1.0)
+        blk["w1"] = torch.where(blk["w1"] >= 0, 1.0, -1.0)
+        bns += [blk["bn1"], blk["bn2"]]
+    for bn in bns:
+        bn["var"] = torch.full_like(bn["var"], EXACT_VAR)
+    gen = torch.Generator().manual_seed(seed)
+    images = torch.round(torch.randn((8, cfg.image_size, cfg.image_size, 3),
+                                     generator=gen) * 8) / 8
+    return params, images
+
+
+def phase_small_reactnet(dev) -> None:
+    """A small ReActNet gives the CPU's argmax on the card, with logits
+    within RN_TOL, in every conv mode."""
+    cfg = dataclasses.replace(rn.CONFIG, num_classes=10, image_size=32,
+                              blocks=((2, 1), (1, 2), (2, 2), (1, 1)))
+    params, images = _exact_reactnet(cfg, seed=5)
+    want = rn.forward(cfg, params, images)
+    params_dev = tree_map(lambda t: t.to(dev), params)
+    comp = rn.prepare_compressed(params_dev, cluster=False)
+    worst = 0.0
+    for mode in ("ste", "packed", "compressed"):
+        got = rn.forward(dataclasses.replace(cfg, conv_mode=mode), params_dev,
+                         images.to(dev),
+                         compressed=comp if mode == "compressed" else None)
+        got = got.cpu()
+        err = float((got - want).abs().max())
+        worst = max(worst, err)
+        if not torch.equal(got.argmax(-1), want.argmax(-1)) or err > RN_TOL:
+            fail(f"small ReActNet {mode}: card vs CPU max err {err}, argmax "
+                 f"{got.argmax(-1).tolist()} vs {want.argmax(-1).tolist()}")
+    print(f"small reactnet: (width 32, 4 blocks, 32x32, 8 images) card "
+          f"ste/packed/compressed vs CPU: same argmax, max abs err "
+          f"{worst:.3e} <= {RN_TOL}")
+
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this check needs a GPU")
@@ -412,11 +855,16 @@ def main() -> None:
     engine, expect = phase_register(dev)
     kernels = [phase_huffman(engine, expect), phase_attention(dev)]
     launches = phase_serve(engine)
-    for k in kernels:
-        k["launches"] = launches[k["name"]]
+    phase_fused_operands(engine, dev)
     del engine
     torch.cuda.empty_cache()
     phase_small_reference(dev)
+    params, images, comp = setup_reactnet(dev)
+    kernels += phase_binary_kernels(dev, comp)
+    launches.update(phase_reactnet(dev, params, images, comp))
+    phase_small_reactnet(dev)
+    for k in kernels:
+        k["launches"] = launches[k["name"]]
     print(f"total {time.monotonic() - t_start:.1f}s; gpu: {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

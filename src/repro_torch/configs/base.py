@@ -1,7 +1,7 @@
 """Model configs (port of ``repro.configs.base`` without jax).
 
 ``ModelConfig`` keeps every field of the reference so a config carries
-across unchanged; ``get_config`` resolves only the archs this port serves
+across unchanged; ``get_config`` resolves only the archs this port runs
 and raises for the rest.
 """
 
@@ -92,12 +92,13 @@ class ModelConfig:
         return dataclasses.replace(self, **overrides)
 
 
-# the archs this port serves so far; the rest wait for later slices
-PORTED = ("minitron-8b",)
+# the archs this port runs so far; the rest wait for later slices
+PORTED = ("minitron-8b", "reactnet")
 
 
-def get_config(name: str) -> ModelConfig:
-    """Resolve a ported arch name to its ModelConfig."""
+def get_config(name: str):
+    """Resolve a ported arch name to its config object (ModelConfig, or
+    ReActNetConfig for the BNN)."""
     if name not in PORTED:
         raise NotImplementedError(
             f"arch {name!r} is not ported to repro_torch yet "

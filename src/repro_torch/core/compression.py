@@ -1,5 +1,5 @@
 """Binary GEMM-weight compression (copy of the GEMM half of
-``repro.core.compression``).
+``repro.core.compression``, with the fused-kernel block layout).
 
 Produces two layouts from one node assignment:
 
@@ -17,7 +17,11 @@ import dataclasses
 
 import numpy as np
 
-from repro_torch.core import clustering, frequency, huffman
+import torch
+
+from repro_torch.core import bitpack, clustering, frequency, huffman
+from repro_torch.core.bitpack import SEQ_BITS
+from repro_torch.kernels import ref
 
 DEFAULT_SUBSTREAMS = 128      # substreams per tile (threads of a decode block)
 DEFAULT_CODES_PER_SUB = 8     # C: codes decoded per substream per tile
@@ -65,6 +69,10 @@ class CompressedTensor:
     @property
     def n_seqs(self) -> int:
         return int(np.prod(self.seq_shape))
+
+    def ratio_stream(self) -> float:
+        """Paper Table V ratio: 9-bit baseline vs varlen stream."""
+        return self.n_seqs * SEQ_BITS / self.stream_bits
 
     def decode_tables(self) -> np.ndarray:
         return self.assign.decode_tables_flat()
@@ -135,3 +143,75 @@ def compress_sequences(
         replacement=repl,
     )
 
+
+
+@dataclasses.dataclass
+class FusedCompressed:
+    """Compressed GEMM weight in the fused-kernel block layout.
+
+    words  : (NB, GB, W, S) uint32 — tile (nb, gb) holds weight rows
+             [tr*nb, tr*nb + tr) x K-block gb (32 sequences = 288 K
+             positions), tr = 4 * codes_per_sub rows, row-major within the
+             tile, round-robin over S=128 substreams.
+    """
+
+    ct: CompressedTensor
+    words: np.ndarray
+    n_true: int
+    k_true: int
+
+    def ratio_tiled(self) -> float:
+        return self.n_true * np.ceil(self.k_true / 9) * 9 / (self.words.size * 32)
+
+
+def compress_gemm_fused(w_bits: np.ndarray,
+                        codes_per_sub: int = DEFAULT_CODES_PER_SUB,
+                        **kw) -> FusedCompressed:
+    """(N, K) {0,1} -> fused block layout for ``fused_decode_matmul``.
+
+    One decode tile covers ``tile_rows = 4 * codes_per_sub`` weight rows x
+    one 288-bit K block."""
+    tile_rows = 4 * codes_per_sub
+    seqs = bitpack.gemm_to_sequences(w_bits)            # (N, G)
+    # clustering must not flip K-padding bits (would break the xnor pad
+    # correction): cluster only the complete 9-bit columns, before padding
+    if kw.pop("cluster", True):
+        full = w_bits.shape[1] // 9
+        if full:
+            sub, _ = clustering.apply_clustering(
+                seqs[:, :full],
+                m=kw.pop("m", clustering.DEFAULT_M),
+                n=kw.pop("n", clustering.DEFAULT_N))
+            seqs = np.concatenate([sub, seqs[:, full:]], axis=1)
+    n, g = seqs.shape
+    npad, gpad = (-n) % tile_rows, (-g) % 32
+    seqs = np.pad(seqs, ((0, npad), (0, gpad)))
+    nb, gb = (n + npad) // tile_rows, (g + gpad) // 32
+    blocks = seqs.reshape(nb, tile_rows, gb, 32) \
+        .transpose(0, 2, 1, 3).reshape(-1)
+    ct = compress_sequences(
+        blocks, w_bits.shape, "gemm_fused", cluster=False,
+        substreams=DEFAULT_SUBSTREAMS, codes_per_sub=codes_per_sub, **kw)
+    words4 = ct.tiled.words.reshape(nb, gb, ct.tiled.w, DEFAULT_SUBSTREAMS)
+    return FusedCompressed(ct=ct, words=words4, n_true=n,
+                           k_true=w_bits.shape[1])
+
+
+def decompress_fused(fc: FusedCompressed) -> np.ndarray:
+    """Reverse the fused block layout -> (N, K) bits (clustered if
+    clustering was applied at compression time).  Decodes with the plain
+    tiled decode (``kernels.ref.decode_tiled``), which gives the
+    reference's scalar per-substream ``decode_stream`` values."""
+    ts = fc.ct.tiled
+    words = torch.from_numpy(np.ascontiguousarray(
+        fc.words.reshape(-1, ts.w, ts.s)).view(np.int32))
+    out = ref.decode_tiled(words, torch.from_numpy(fc.ct.decode_tables()),
+                           ts.c).numpy()
+    nb, gb = fc.words.shape[:2]
+    tile_rows = ts.c * 4
+    seqs = out.reshape(nb, gb, tile_rows, 32).transpose(0, 2, 1, 3) \
+        .reshape(nb * tile_rows, -1)
+    g = -(-fc.k_true // 9)
+    return bitpack.sequences_to_gemm(
+        np.ascontiguousarray(seqs[:fc.n_true, :g]).astype(np.uint16),
+        fc.k_true)

@@ -10,6 +10,9 @@
 // sequences.  The 160-entry decode table holds node 0 at [0, 32), node 1
 // at [32, 96) and node 2 at [96, 160); node 3 is the escape (raw 9 bits).
 //
+// The decode step itself is huffman_decode_step.cuh, which the fused
+// decode + GEMM kernel shares.
+//
 // Launch: one block per tile, one thread per substream (S = 128 threads).
 // The table sits in shared memory; thread s reads word w of its substream
 // at tile[w * S + s], so each row is read coalesced across the block, and
@@ -28,9 +31,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "huffman_decode_step.cuh"
+
 namespace {
 
-constexpr int kTableSize = 160;
+using repro_torch::huffman_decode_code;
+using repro_torch::kTableSize;
 
 __global__ void huffman_decode_kernel(const uint32_t* __restrict__ words,
                                       const int32_t* __restrict__ table,
@@ -45,33 +51,8 @@ __global__ void huffman_decode_kernel(const uint32_t* __restrict__ words,
   int32_t* dst = out + (size_t)blockIdx.x * c_codes * s_lanes;
   int bitpos = 0;
   for (int ci = 0; ci < c_codes; ++ci) {
-    const int word_idx = bitpos >> 5;
-    const uint32_t off = (uint32_t)(bitpos & 31);
-    // a cursor past the last word reads 0; the next word clamps at W - 1
-    // (the reference's one-hot gather and min(word_idx + 1, W - 1))
-    const uint32_t w0 = word_idx < w_rows ? tile[word_idx * s_lanes + s] : 0u;
-    const int nidx = min(word_idx + 1, w_rows - 1);
-    const uint32_t w1 = tile[nidx * s_lanes + s];
-    const uint32_t lo = off ? (w1 >> (32u - off)) : 0u;
-    const uint32_t window = ((w0 << off) | lo) >> 20;   // 12-bit peek
-    const uint32_t top3 = window >> 9;
-    int32_t val;
-    int len;
-    if (top3 < 4) {                 // prefix 0: 5-bit index
-      val = tab[(window >> 6) & 31];
-      len = 6;
-    } else if ((top3 >> 1) == 2) {  // prefix 10: 6-bit index
-      val = tab[32 + ((window >> 4) & 63)];
-      len = 8;
-    } else if (top3 == 6) {         // prefix 110: 6-bit index
-      val = tab[96 + ((window >> 3) & 63)];
-      len = 9;
-    } else {                        // prefix 111: escape, raw 9 bits
-      val = (int32_t)(window & 511);
-      len = 12;
-    }
-    dst[ci * s_lanes + s] = val;
-    bitpos += len;
+    dst[ci * s_lanes + s] =
+        huffman_decode_code(tile, w_rows, s_lanes, s, tab, bitpos);
   }
 }
 

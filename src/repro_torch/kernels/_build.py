@@ -4,8 +4,10 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled with
 ``nvcc`` into its own shared library under ``build/repro_torch_kernels/``
 at the repository root, then loaded with ``ctypes``.  Nothing includes
 PyTorch's headers, so a build takes seconds.  Libraries are named by a
-hash of their source and flags: an unchanged kernel is never rebuilt in
-the same checkout, and an edited one never loads a stale library.
+hash of their source, the local headers it includes (``#include "..."``,
+followed transitively) and the flags: an unchanged kernel is never
+rebuilt in the same checkout, and an edited one, or one whose shared
+header was edited, never loads a stale library.
 
 Every C entry point launches on the stream it is given, returns
 ``cudaGetLastError()``, and the Python wrapper raises on a non-zero code
@@ -17,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -24,11 +27,13 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-KERNELS = ("huffman_decode", "paged_attention")
+KERNELS = ("huffman_decode", "paged_attention", "binarize_pack",
+           "binary_contraction", "fused_decode_contraction")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+_LOCAL_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', re.M)
 
 
 def _nvcc() -> str:
@@ -42,10 +47,26 @@ def _nvcc() -> str:
                        "with the card")
 
 
+def _sources(name: str) -> list[Path]:
+    """``csrc/<name>.cu`` and every local header it includes, transitively."""
+    seen: list[Path] = []
+    todo = [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop()
+        if path in seen:
+            continue
+        seen.append(path)
+        todo += [path.parent / inc.decode()
+                 for inc in _LOCAL_INCLUDE.findall(path.read_bytes())]
+    return seen
+
+
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+    digest = hashlib.sha256()
+    for path in _sources(name):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
 def build(names=KERNELS) -> dict[str, float]:

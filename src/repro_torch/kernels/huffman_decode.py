@@ -29,6 +29,18 @@ from repro_torch.kernels import _build, ref
 TABLE_SIZE = 160
 
 
+def pack_bitplane_tables(tables_flat) -> np.ndarray:
+    """(160,) int32 -> (5, 9) uint32 bit-plane LUT (the reference's
+    ``gather="bitplane"`` table form): bit c of word (g, j) is tap j (bit
+    8 - j) of table entry 32 g + c."""
+    t = np.asarray(tables_flat, dtype=np.uint32).reshape(5, 32)
+    taps = np.arange(9)
+    bits = (t[:, :, None] >> (8 - taps)[None, None, :]) & 1   # (5, 32, 9)
+    shifts = np.arange(32, dtype=np.uint32)
+    return (bits.transpose(0, 2, 1).astype(np.uint32)
+            << shifts).sum(-1, dtype=np.uint32)               # (5, 9)
+
+
 def unpack_bitplane_tables(lut) -> np.ndarray:
     """(5, 9) uint32 bit-plane LUT -> (160,) int32 flat table: bit c of
     word (g, j) is tap j (bit 8 - j) of table entry 32 g + c."""
@@ -39,7 +51,8 @@ def unpack_bitplane_tables(lut) -> np.ndarray:
     return (bits * taps).sum(axis=1).reshape(TABLE_SIZE).astype(np.int32)
 
 
-def _flat_table(tables: torch.Tensor, device) -> torch.Tensor:
+def flat_table(tables: torch.Tensor, device) -> torch.Tensor:
+    """Either table form -> the (160,) int32 flat table on ``device``."""
     if tuple(tables.shape) == (TABLE_SIZE,):
         return tables.to(device=device, dtype=torch.int32).contiguous()
     if tuple(tables.shape) == (5, 9):
@@ -58,7 +71,7 @@ def huffman_decode(words: torch.Tensor, tables: torch.Tensor, *,
     plain version."""
     if words.dim() != 3:
         raise ValueError(f"words must be (T, W, S), got {tuple(words.shape)}")
-    table = _flat_table(tables, words.device)
+    table = flat_table(tables, words.device)
     if words.device.type == "cpu":
         return ref.decode_tiled(words, table, c)
     if not words.is_cuda:

@@ -14,14 +14,13 @@ block kinds raise ``NotImplementedError``.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from repro_torch import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (embed_init, mlp_apply, mlp_init,
                                        rms_norm, rms_norm_init, softcap)
-from repro_torch.tree import tree_map
+from repro_torch.tree import params_from_numpy, tree_map  # noqa: F401
 
 PORTED_KINDS = ("attn",)
 
@@ -110,22 +109,6 @@ def init_params(cfg, generator: torch.Generator, device="cuda") -> dict:
     params["suffix"] = [block_init(k, cfg, generator, dtype, device)
                         for k in cfg.suffix_kinds]
     return params
-
-
-def params_from_numpy(tree, device) -> dict:
-    """The reference's ``init_params`` tree (leaves as numpy arrays) ->
-    the port's params on ``device``, leaf for leaf.  bfloat16 leaves
-    (``ml_dtypes``) cross through float32, which is exact."""
-    device = resolve_device(device)
-
-    def leaf(a):
-        a = np.asarray(a)
-        if a.dtype.name == "bfloat16":
-            return torch.from_numpy(a.astype(np.float32)).to(
-                device=device, dtype=torch.bfloat16)
-        return torch.from_numpy(np.array(a)).to(device)
-
-    return tree_map(leaf, tree)
 
 
 def init_cache_specs(cfg, batch: int, max_len: int) -> dict:

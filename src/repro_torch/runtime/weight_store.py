@@ -19,6 +19,10 @@ reference's on the same access sequence, and so do the prefetch counters:
 with ``prefetch`` on, the next layer's missing tiles are launched right
 after the current layer's are fetched (the launch is asynchronous on the
 card, as jax's dispatch was).
+
+:meth:`WeightStore.fused_operands` gives a layer's operands for the fused
+decode + xnor-popcount GEMM (``kernels.ops.compressed_binary_matmul``),
+built from the same cache-served tiles, so both paths see the same bits.
 """
 
 from __future__ import annotations
@@ -29,7 +33,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import bitpack, compression, frequency, huffman
-from repro_torch.kernels import ref
+from repro_torch.kernels import ops, ref
 from repro_torch.kernels.huffman_decode import huffman_decode
 from repro_torch.runtime.decode_cache import DecodeTileCache
 from repro_torch.runtime.telemetry import NULL_TELEMETRY
@@ -80,6 +84,7 @@ class _ModelEntry:
     layers: dict[str, list[StoredLayer]]  # tree path -> per-repeat layers
     stacked: dict[str, bool]              # tree path -> 3-d scan-stacked leaf
     memo: dict = dataclasses.field(default_factory=dict)
+    fused_memo: dict = dataclasses.field(default_factory=dict)
 
 
 def _tile_freq(seqs: np.ndarray, ts: compression.TiledStream) -> np.ndarray:
@@ -275,6 +280,30 @@ class WeightStore:
                 rebuilt[name] = out
         return tree_map_with_path(lambda path, leaf: rebuilt.get(path, leaf),
                                   entry.params)
+
+    def fused_operands(self, model_id: str, path: str, repeat: int = 0, *,
+                       gather: str = "onehot", codes: int | None = None):
+        """(words, tables, meta) for the fused decode+GEMM kernel on the
+        layer's device, built from the same cache-served tiles as
+        :meth:`materialize`; memoised until one of the layer's tiles
+        misses the cache again."""
+        entry = self._models[model_id]
+        layer = entry.layers[path][repeat]
+        codes = codes or compression.DEFAULT_CODES_PER_SUB
+        mkey = (path, repeat, gather, codes)
+        tiles, miss = self._fetch_tiles(model_id, layer)
+        if not miss and mkey in entry.fused_memo:
+            return entry.fused_memo[mkey]
+        seqs = ref.tiled_to_sequences(torch.stack(tiles), layer.ct.n_seqs)
+        bits = bitpack.sequences_to_gemm(
+            seqs.cpu().numpy().astype(np.uint16).reshape(layer.ct.seq_shape),
+            layer.k)
+        words, tables, meta = ops.prepare_compressed_gemm(
+            bits, cluster=False, gather=gather, codes=codes,
+            device=layer.words.device)
+        meta["scale"] = layer.scale_dev
+        entry.fused_memo[mkey] = (words, tables, meta)
+        return entry.fused_memo[mkey]
 
     # -- introspection -----------------------------------------------------
     def layers(self, model_id: str) -> dict[str, list[StoredLayer]]:

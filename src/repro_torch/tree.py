@@ -7,6 +7,11 @@ name agree with the reference's (``repro.dist.sharding.path_name``).
 
 from __future__ import annotations
 
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+
 
 def tree_map_with_path(fn, tree, path: str = ""):
     """Rebuild ``tree`` with ``fn(path_name, leaf)`` at every leaf."""
@@ -28,3 +33,19 @@ def tree_leaves(tree) -> list:
     out = []
     tree_map(out.append, tree)
     return out
+
+
+def params_from_numpy(tree, device) -> dict:
+    """The reference's ``init_params`` tree (leaves as numpy arrays) ->
+    the port's params on ``device``, leaf for leaf.  bfloat16 leaves
+    (``ml_dtypes``) cross through float32, which is exact."""
+    device = resolve_device(device)
+
+    def leaf(a):
+        a = np.asarray(a)
+        if a.dtype.name == "bfloat16":
+            return torch.from_numpy(a.astype(np.float32)).to(
+                device=device, dtype=torch.bfloat16)
+        return torch.from_numpy(np.array(a)).to(device)
+
+    return tree_map(leaf, tree)

@@ -13,8 +13,11 @@ import pytest
 import torch
 
 from repro_torch.core import compression
-from repro_torch.kernels import ref
-from repro_torch.kernels.huffman_decode import huffman_decode
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels.binarize_pack import binarize_pack
+from repro_torch.kernels.binary_contraction import binary_contraction
+from repro_torch.kernels.fused_decode_contraction import fused_decode_matmul
+from repro_torch.kernels.huffman_decode import flat_table, huffman_decode
 from repro_torch.kernels.paged_attention import (paged_mixed_attention,
                                                  paged_mixed_attention_plain)
 from repro_torch.runtime.decode_cache import DecodeTileCache
@@ -147,3 +150,97 @@ def test_paged_attention_kernel_never_reads_sink_or_padding(dev):
     torch.cuda.synchronize()
     assert torch.isfinite(poisoned).all()
     assert torch.equal(clean, poisoned)
+
+
+# --- binary kernels --------------------------------------------------------
+
+def _signs(rng, shape):
+    x = rng.standard_normal(shape).astype(np.float32)
+    x[rng.random(shape) < 0.05] = 0.0          # x >= 0 is bit 1 at exactly 0
+    return x
+
+
+@pytest.mark.parametrize("m,k", [(1, 1), (3, 287), (5, 288), (37, 289),
+                                 (64, 1000), (1024, 576)])
+def test_binarize_pack_kernel_bit_exact_vs_plain(dev, m, k):
+    x = torch.from_numpy(_signs(np.random.default_rng(k), (m, k))).to(dev)
+    before = binarize_pack.launches
+    got = binarize_pack(x)
+    torch.cuda.synchronize()
+    assert binarize_pack.launches == before + 1
+    assert got.shape == (m, -(-k // 288), 9)
+    assert torch.equal(got, ref.binarize_pack(x))
+
+
+@pytest.mark.parametrize("m,n,k", [(1, 1, 9), (1, 31, 100), (65, 33, 288),
+                                   (130, 70, 2000), (7, 129, 9216)])
+def test_binary_contraction_kernel_bit_exact_vs_plain(dev, m, n, k):
+    rng = np.random.default_rng(m * n)
+    xw = ref.binarize_pack(torch.from_numpy(_signs(rng, (m, k))).to(dev))
+    ww = ref.binarize_pack(torch.from_numpy(_signs(rng, (n, k))).to(dev))
+    xw, ww = xw.reshape(m, -1), ww.reshape(n, -1)
+    before = binary_contraction.launches
+    got = binary_contraction(xw, ww, k_true=k)
+    torch.cuda.synchronize()
+    assert binary_contraction.launches == before + 1
+    assert torch.equal(got, ref.popcount_dot(xw, ww, k))
+
+
+@pytest.mark.parametrize("gather", ["onehot", "bitplane"])
+@pytest.mark.parametrize("codes", [8, 16, 32])
+@pytest.mark.parametrize("m,n,k", [(1, 33, 100), (129, 70, 577),
+                                   (300, 32, 288)])
+def test_fused_kernel_bit_exact_vs_plain(dev, m, n, k, codes, gather):
+    rng = np.random.default_rng(k + codes)
+    w_bits = (rng.random((n, k)) < 0.3).astype(np.uint8)   # skewed sequences
+    words, tables, meta = ops.prepare_compressed_gemm(
+        w_bits, cluster=True, gather=gather, codes=codes, device=dev)
+    xw = ref.binarize_pack(torch.from_numpy(_signs(rng, (m, k))).to(dev))
+    before = fused_decode_matmul.launches
+    got = fused_decode_matmul(words, xw, tables, k_true=k, n_true=n,
+                              codes=codes)
+    torch.cuda.synchronize()
+    assert fused_decode_matmul.launches == before + 1
+    want = ref.fused_decode_matmul(words, xw, flat_table(tables, dev),
+                                   k_true=k, n_true=n, codes=codes)
+    assert torch.equal(got, want)
+
+
+def test_binary_conv_paths_agree_on_the_card(dev):
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(_signs(rng, (2, 9, 7, 40))).to(dev)
+    w = torch.from_numpy(_signs(rng, (33, 40, 3, 3))).to(dev)
+    operands = ops.prepare_compressed_conv(
+        (w >= 0).cpu().numpy().astype(np.uint8), cluster=False, device=dev)
+    for stride in (1, 2):
+        want = ref.binary_conv3x3(x, w, stride)
+        assert torch.equal(ops.binary_conv3x3(x, w, stride=stride), want)
+        assert torch.equal(ops.compressed_binary_conv3x3(
+            x, *operands[:2], cin=40, cout=33, stride=stride), want)
+
+
+def test_binary_wrappers_reject_what_the_kernels_do_not_take(dev):
+    x = torch.zeros((4, 300), device=dev)
+    with pytest.raises(ValueError, match="contiguous float32"):
+        binarize_pack(x.double())
+    with pytest.raises(ValueError, match="contiguous float32"):
+        binarize_pack(torch.zeros((300, 4), device=dev).T)
+    xw = binarize_pack(x).reshape(4, -1)
+    with pytest.raises(ValueError, match="contiguous int32"):
+        binary_contraction(xw.long(), xw, k_true=300)
+    with pytest.raises(ValueError, match="contiguous int32"):
+        binary_contraction(xw[:, ::2], xw[:, ::2], k_true=100)
+    with pytest.raises(ValueError, match="one card"):
+        binary_contraction(xw, xw.cpu(), k_true=300)
+    words, tables, _ = ops.prepare_compressed_gemm(
+        np.ones((32, 300), np.uint8), device=dev)
+    with pytest.raises(ValueError, match="G=1 != weight tiles GB=2"):
+        fused_decode_matmul(words, binarize_pack(x[:, :200].contiguous()),
+                            tables,
+                            k_true=300, n_true=32)
+    with pytest.raises(ValueError, match="contiguous int32"):
+        fused_decode_matmul(words.long(), binarize_pack(x), tables,
+                            k_true=300, n_true=32)
+    with pytest.raises(ValueError, match="4 \\* codes must divide"):
+        fused_decode_matmul(words, binarize_pack(x), tables, k_true=300,
+                            n_true=32, codes=3)
