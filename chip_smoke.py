@@ -8,15 +8,17 @@ Run from the repository root on a machine with one NVIDIA GPU:
 It builds the port's CUDA kernels from ``src/repro_torch/csrc`` with nvcc
 (one nvcc per source, all started together) and drives two paths:
 
-* serving: holds the Huffman-decode and paged-attention kernels against
-  their plain PyTorch versions at serving shapes, serves minitron-8b at
-  its published widths (depth cut to 2 layers) through ``ServeEngine``
-  and ``Scheduler`` on the ``cuda_paged`` backend, and checks that both
-  kernels were launched by that run, that every request completed, that
-  a second run gives the same tokens, that ``WeightStore.fused_operands``
-  on a full-width MLP matrix gives the materialised weights' binary
-  product, and that a small model served on the card gives the CPU's
-  tokens;
+* serving: holds the Huffman-decode and paged-attention kernels (fp and
+  int8 codec pools) against their plain PyTorch versions at serving
+  shapes, serves minitron-8b at its published widths (depth cut to 2
+  layers) through ``ServeEngine`` and ``Scheduler`` on the ``cuda_paged``
+  backend, with fp pools and again with ``kv_codec="cluster"`` (int8 code
+  pools decoded in the kernel), and checks that the kernels were launched
+  by those runs, that every request completed, that a second run gives
+  the same tokens, that ``WeightStore.fused_operands`` on a full-width
+  MLP matrix gives the materialised weights' binary product, and that a
+  small model served on the card gives the CPU's tokens, with and without
+  the codec;
 * the paper's BNN: holds the binarize-pack, xnor-popcount contraction and
   fused Huffman-decode + contraction kernels against their plain versions
   bit for bit at every ReActNet-A block shape at batch 32 (and ragged
@@ -49,7 +51,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 
 from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.core import bitpack  # noqa: E402
-from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.kernels import _build, kv_codec, ops, ref  # noqa: E402
 from repro_torch.kernels.binarize_pack import binarize_pack  # noqa: E402
 from repro_torch.kernels.binary_contraction import \
     binary_contraction  # noqa: E402
@@ -58,12 +60,12 @@ from repro_torch.kernels.fused_decode_contraction import \
 from repro_torch.kernels.huffman_decode import (  # noqa: E402
     flat_table, huffman_decode, pack_bitplane_tables)
 from repro_torch.kernels.paged_attention import (  # noqa: E402
-    paged_mixed_attention, paged_mixed_attention_plain)
-from repro_torch.launch.serve import tiny_config  # noqa: E402
+    decode_pool, paged_mixed_attention, paged_mixed_attention_plain)
+from repro_torch.launch.serve import codec_report, tiny_config  # noqa: E402
 from repro_torch.models import reactnet as rn  # noqa: E402
 from repro_torch.models.transformer import init_params  # noqa: E402
 from repro_torch.runtime import Scheduler, ServeEngine, ServeMetrics  # noqa: E402
-from repro_torch.tree import tree_map  # noqa: E402
+from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 F32_OPS_PER_S = 67e12            # H100 SXM CUDA cores, an FMA counted as 2
@@ -205,9 +207,12 @@ def _attn_inputs(dev, qn, q_lens, lengths, pps, gen):
     return q, k, v, table, as_i32(lengths), as_i32(q_lens)
 
 
-def _attn_bytes_ops(q, k, table, lengths, q_lens, window):
+def _attn_bytes_ops(q, k, table, lengths, q_lens, window, codec=False):
     """Bytes every input read once + output written once, and f32 ops,
-    for what these inputs need (positions each slot's tokens can see)."""
+    for what these inputs need (positions each slot's tokens can see).
+    ``codec``: ``k`` holds int8 codes, each visible (position, head, dim)
+    element decoded once (one multiply), plus one f32 scale per visible
+    position in each of the K and V scale pools."""
     _, qn, h, d = q.shape
     kh = k.shape[2]
     kv_pos, pairs = 0, 0
@@ -224,6 +229,9 @@ def _attn_bytes_ops(q, k, table, lengths, q_lens, window):
               + table.numel() * 4 + 2 * lengths.numel() * 4
               + q.numel() * 4)
     ops = pairs * h * (4 * d + 6)     # q.k, p.v, online-softmax update
+    if codec:
+        nbytes += kv_pos * 2 * 4 + kv_codec.LEVELS * 4
+        ops += kv_pos * kh * 2 * d
     return nbytes, ops
 
 
@@ -238,7 +246,7 @@ def _sdpa_ms(q, k, v, table, lengths, q_lens) -> float:
         h // kh, dim=2).transpose(1, 2)
     vg = v[table.long()].reshape(s_n, span, kh, d).repeat_interleave(
         h // kh, dim=2).transpose(1, 2)
-    qg = q.to(torch.bfloat16).transpose(1, 2)
+    qg = q.to(k.dtype).transpose(1, 2)
     qpos = (lengths - q_lens)[:, None] + torch.arange(qn, device=q.device)
     mask = torch.arange(span, device=q.device)[None, None] <= qpos[..., None]
     mask = mask[:, None]
@@ -246,7 +254,65 @@ def _sdpa_ms(q, k, v, table, lengths, q_lens) -> float:
         qg, kg, vg, attn_mask=mask, scale=1.0), iters=50)
 
 
-def phase_attention(dev) -> dict:
+def _codec_attention(q, k, v, table, ln, ql, qn, dev) -> tuple:
+    """The codec case at one serve shape: ``k``/``v`` (bf16) encoded as
+    the serve path encodes them; the codec kernel against its plain
+    version (ATTN_TOL), bit for bit against the fp kernel on the pools
+    decoded up front into f32 under both dequant names, and with poisoned
+    page-0 codes -> (worst error, timing)."""
+    (kc, ks), (vc, vs) = (kv_codec.encode(x, (-2, -1)) for x in (k, v))
+    cb = kv_codec.codebook(dev)
+    kd, vd = decode_pool(kc, ks, cb), decode_pool(vc, vs, cb)
+    worst = 0.0
+    rows = torch.arange(qn, device=dev)[None] < ql[:, None]
+    for window in (0, 100):
+        for cap in (0.0, ATTN_SOFTCAP):
+            kw = dict(window=window, softcap_val=cap, page_size=SERVE_PAGE)
+            ckw = dict(k_scales=ks, v_scales=vs, codebook=cb, **kw)
+            fp = paged_mixed_attention(q, kd, vd, table, ln, ql, **kw)
+            want = paged_mixed_attention_plain(q, kc, vc, table, ln, ql, ks,
+                                               vs, cb, **kw)
+            got = {d: paged_mixed_attention(q, kc, vc, table, ln, ql,
+                                            dequant=d, **ckw)
+                   for d in ("gather", "onehot")}
+            kp, vp = kc.clone(), vc.clone()
+            kp[0], vp[0] = 127, -127
+            poisoned = paged_mixed_attention(q, kp, vp, table, ln, ql, **ckw)
+            torch.cuda.synchronize()
+            err = float((got["gather"] - want).abs()[rows].max())
+            worst = max(worst, err)
+            if not torch.isfinite(got["gather"]).all() or err > ATTN_TOL:
+                fail(f"codec paged attention Q={qn} window={window} "
+                     f"softcap={cap}: max err {err} > {ATTN_TOL}")
+            for d, out in got.items():
+                if not torch.equal(out, fp):
+                    fail(f"codec kernel ({d}) Q={qn} window={window} "
+                         f"softcap={cap} differs from the fp kernel on the "
+                         f"decoded f32 pool at "
+                         f"{int((out != fp).sum())} outputs")
+            if not torch.equal(got["gather"], poisoned):
+                fail("poisoned page-0 codes changed the codec kernel's "
+                     "output")
+    kw = dict(k_scales=ks, v_scales=vs, codebook=cb, page_size=SERVE_PAGE)
+    ms = time_ms(lambda: paged_mixed_attention(q, kc, vc, table, ln, ql,
+                                               **kw), iters=50)
+    onehot_ms = time_ms(lambda: paged_mixed_attention(
+        q, kc, vc, table, ln, ql, dequant="onehot", **kw), iters=5)
+    plain_ms = time_ms(lambda: paged_mixed_attention_plain(
+        q, kc, vc, table, ln, ql, ks, vs, cb, page_size=SERVE_PAGE),
+        iters=10)
+    decode_ms = time_ms(lambda: (decode_pool(kc, ks, cb),
+                                 decode_pool(vc, vs, cb)), iters=20)
+    lib_ms = _sdpa_ms(q, kd, vd, table, ln, ql)
+    nbytes, ops = _attn_bytes_ops(q, kc, table, ln, ql, 0, codec=True)
+    bms, by = bound_ms(nbytes, ops)
+    print(f"  codec Q={qn} bounds: bytes {nbytes / HBM_BYTES_PER_S * 1e3:.4f}"
+          f" ms ({nbytes} B: int8 codes, scale rows, q, out, table), "
+          f"operations {ops / F32_OPS_PER_S * 1e3:.4f} ms ({ops} f32 ops)")
+    return worst, (ms, plain_ms, lib_ms, bms, by, decode_ms, onehot_ms)
+
+
+def phase_attention(dev) -> list:
     gen = torch.Generator(device=dev).manual_seed(1)
     pps = -(-(int(SERVE_PROMPTS.max()) + SERVE_GEN) // SERVE_PAGE)
     span = pps * SERVE_PAGE
@@ -254,7 +320,7 @@ def phase_attention(dev) -> dict:
         64: ([64, 37, 0, 1], [span, 130, 0, 200]),
         1: ([1, 1, 0, 1], [span, 17, 5, 100]),
     }
-    worst, timing = 0.0, {}
+    worst, timing, cworst, ctiming = 0.0, {}, 0.0, {}
     for qn, (q_lens, lengths) in cases.items():
         q, k, v, table, ln, ql = _attn_inputs(dev, qn, q_lens, lengths,
                                               pps, gen)
@@ -292,25 +358,53 @@ def phase_attention(dev) -> dict:
               f"D=128, page {SERVE_PAGE}, {pps} pages/slot, bf16 pools, "
               f"q_lens {q_lens}): kernel {ms:.4f} ms, plain {plain_ms:.4f} "
               f"ms, sdpa {lib_ms:.4f} ms, bound {bms:.4f} ms ({by})")
+        err, ctiming[qn] = _codec_attention(q, k, v, table, ln, ql, qn, dev)
+        cworst = max(cworst, err)
+        cms, cplain, clib, cbms, cby, cdec, conehot = ctiming[qn]
+        print(f"paged_mixed_attention codec Q={qn} (same shapes, int8 code "
+              f"pools + f32 scales): kernel {cms:.4f} ms (onehot "
+              f"{conehot:.4f} ms), plain {cplain:.4f} ms, sdpa on the "
+              f"decoded f32 view {clib:.4f} ms + decode {cdec:.4f} ms, "
+              f"bound {cbms:.4f} ms ({cby})")
     print(f"paged_mixed_attention: max abs err {worst:.3e} <= {ATTN_TOL} "
           f"on rows i < q_lens over Q {{64, 1}} x window {{0, 100}} x "
           f"softcap {{0, {ATTN_SOFTCAP}}}; poisoned page 0 inert")
+    print(f"paged_mixed_attention codec: max abs err {cworst:.3e} <= "
+          f"{ATTN_TOL} vs plain over the same grid; gather and onehot "
+          f"bit-identical to the fp kernel on the decoded f32 pools; "
+          f"poisoned page-0 codes inert")
     ms, plain_ms, lib_ms, bms, by = timing[64]
-    return {"name": "paged_mixed_attention", "route": "cuda",
-            "source": "src/repro_torch/csrc/paged_attention.cu",
-            "replaces": "src/repro/kernels/paged_attention.py:239",
-            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bms, "bound_by": by, "library_ms": lib_ms,
-            "shape": "S=4 Q=64 H=32 KH=8 D=128 page=16 bf16",
-            "decode_q1": {"ms": timing[1][0], "plain_ms": timing[1][1],
-                          "library_ms": timing[1][2],
-                          "bound_ms": timing[1][3]}}
+    fp = {"name": "paged_mixed_attention", "route": "cuda",
+          "source": "src/repro_torch/csrc/paged_attention.cu",
+          "replaces": "src/repro/kernels/paged_attention.py:239",
+          "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+          "bound_ms": bms, "bound_by": by, "library_ms": lib_ms,
+          "shape": "S=4 Q=64 H=32 KH=8 D=128 page=16 bf16",
+          "decode_q1": {"ms": timing[1][0], "plain_ms": timing[1][1],
+                        "library_ms": timing[1][2],
+                        "bound_ms": timing[1][3]}}
+    ms, plain_ms, lib_ms, bms, by, dec_ms, onehot_ms = ctiming[64]
+    codec = {"name": "paged_mixed_attention_codec", "route": "cuda",
+             "variant_of": "paged_mixed_attention",
+             "source": "src/repro_torch/csrc/paged_attention.cu",
+             "replaces": "src/repro/kernels/paged_attention.py:239",
+             "max_abs_err": cworst, "ms": ms, "plain_ms": plain_ms,
+             "bound_ms": bms, "bound_by": by, "library_ms": lib_ms,
+             "library_decode_ms": dec_ms, "onehot_ms": onehot_ms,
+             "shape": "S=4 Q=64 H=32 KH=8 D=128 page=16 int8 codes + f32 "
+                      "scales (library_ms: SDPA on the decoded f32 view, "
+                      "its decode in library_decode_ms)",
+             "decode_q1": {"ms": ctiming[1][0], "plain_ms": ctiming[1][1],
+                           "library_ms": ctiming[1][2],
+                           "bound_ms": ctiming[1][3],
+                           "library_decode_ms": ctiming[1][5]}}
+    return [fp, codec]
 
 
-def _serve(engine, prompts):
+def _serve(engine, prompts, kv_codec="none"):
     sched = Scheduler(engine, batch_size=SERVE_BATCH,
                       prefill_chunk=SERVE_CHUNK, kv_page_size=SERVE_PAGE,
-                      attn_backend="cuda_paged")
+                      attn_backend="cuda_paged", kv_codec=kv_codec)
     for p in prompts:
         sched.submit(p, SERVE_GEN)
     t0 = time.monotonic()
@@ -320,7 +414,7 @@ def _serve(engine, prompts):
     if len(done) != len(prompts) or \
             any(len(r.generated) != SERVE_GEN for r in done):
         fail("not every request completed with its full token budget")
-    return {r.rid: tuple(r.generated) for r in done}, wall
+    return {r.rid: tuple(r.generated) for r in done}, wall, sched
 
 
 def phase_serve(engine) -> dict:
@@ -330,14 +424,14 @@ def phase_serve(engine) -> dict:
     engine.metrics = ServeMetrics()
     huffman_decode.launches = 0
     paged_mixed_attention.launches = 0
-    toks1, wall1 = _serve(engine, prompts)
+    toks1, wall1, _ = _serve(engine, prompts)
     launches = {"huffman_decode": huffman_decode.launches,
                 "paged_mixed_attention": paged_mixed_attention.launches}
     m1, st1 = engine.metrics, engine.cache.stats()
     if not all(launches.values()):
         fail(f"the serve run did not launch every kernel: {launches}")
     engine.metrics = ServeMetrics()
-    toks2, wall2 = _serve(engine, prompts)
+    toks2, wall2, _ = _serve(engine, prompts)
     m2 = engine.metrics
     if toks1 != toks2:
         fail("a second run of the same requests gave other tokens")
@@ -356,10 +450,62 @@ def phase_serve(engine) -> dict:
     if m2.kv_gather_bytes or m2.kv_prefill_gather_bytes:
         fail("the mixed-step path copied KV")
     profile_serve(engine, prompts)
+    return launches, prompts, m2
+
+
+def phase_serve_codec(engine, prompts, fp_launches, fp_warm) -> dict:
+    """The same 8 requests on the same registered engine with
+    ``kv_codec="cluster"``: int8 code pools + f32 scale pools, decoded
+    inside the paged-attention kernel.  Two runs, identical tokens; the
+    kernel launched once per layer per tick, as often as in the fp run
+    (the schedule does not depend on the values); no KV copied."""
+    engine.metrics = ServeMetrics()
+    huffman_decode.launches = 0
+    paged_mixed_attention.launches = 0
+    toks1, wall1, sched = _serve(engine, prompts, kv_codec="cluster")
+    launches = {"paged_mixed_attention_codec":
+                paged_mixed_attention.launches,
+                "huffman_decode": huffman_decode.launches}
+    m1 = engine.metrics
+    want = fp_launches["paged_mixed_attention"]
+    if launches["paged_mixed_attention_codec"] != want:
+        fail(f"codec serve launched the attention kernel "
+             f"{launches['paged_mixed_attention_codec']} times, the fp "
+             f"serve {want} (same schedule expected)")
+    pool = sched._pool
+    kinds = ({c.dtype for c in tree_leaves(pool.kcache)},
+             {x.dtype for x in tree_leaves(pool.kscales)})
+    if kinds != ({torch.int8}, {torch.float32}):
+        fail(f"codec pools are not int8 codes + f32 scales: {kinds}")
+    engine.metrics = ServeMetrics()
+    toks2, wall2, sched2 = _serve(engine, prompts, kv_codec="cluster")
+    m2 = engine.metrics
+    if toks1 != toks2:
+        fail("a second codec run of the same requests gave other tokens")
+    if m1.kv_gather_bytes or m1.kv_prefill_gather_bytes or \
+            m2.kv_gather_bytes or m2.kv_prefill_gather_bytes:
+        fail("the codec mixed-step path copied KV")
+    print(f"serve codec: same requests, kv_codec=cluster; launches "
+          f"{launches} (fp run: {want}); pools "
+          f"{[tuple(c.shape) for c in tree_leaves(pool.kcache)]} int8 + "
+          f"scales {[tuple(x.shape) for x in tree_leaves(pool.kscales)]} "
+          f"f32")
+    print(f"serve codec run 1: {wall1:.2f}s, {m1.ms_per_token():.2f} "
+          f"ms/step, {m1.tokens_per_s():.1f} tok/s; run 2: {wall2:.2f}s, "
+          f"{m2.ms_per_token():.2f} ms/step, {m2.tokens_per_s():.1f} tok/s; "
+          f"fp run 2 (warm): {fp_warm.ms_per_token():.2f} ms/step, "
+          f"{fp_warm.tokens_per_s():.1f} tok/s; tokens identical across "
+          f"the two codec runs; sample {toks1[0][:8]}")
+    t0 = time.monotonic()
+    codec_report(sched2._pool, m2)
+    print(f"serve codec: at-rest report over "
+          f"{sum(c.numel() for c in tree_leaves(pool.kcache))} resident "
+          f"codes took {time.monotonic() - t0:.1f}s on the host")
+    profile_serve(engine, prompts, kv_codec="cluster")
     return launches
 
 
-def profile_serve(engine, prompts) -> None:
+def profile_serve(engine, prompts, kv_codec="none") -> None:
     """Where a warm serve run's time goes: one more run of the same
     requests under torch.profiler -> device busy share of the wall time
     and the kernels by device time; plus the host cost of one warm
@@ -373,7 +519,7 @@ def profile_serve(engine, prompts) -> None:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
-        _serve(engine, prompts)
+        _serve(engine, prompts, kv_codec=kv_codec)
         wall_ms = (time.monotonic() - t0) * 1e3
     calls = (engine.cache.hits - hits0) // engine.store.n_tiles(
         engine.model_id)
@@ -383,7 +529,8 @@ def profile_serve(engine, prompts) -> None:
             if e.device_type == DeviceType.CUDA
             and e.self_device_time_total > 0]
     busy = sum(ms for _, ms, _ in rows)
-    print(f"profile (warm run): wall {wall_ms:.1f} ms; {calls} materialize "
+    print(f"profile (warm run, kv_codec={kv_codec}): wall {wall_ms:.1f} "
+          f"ms; {calls} materialize "
           f"calls (one per tick and per admission); one warm materialize, "
           f"timed alone, {mat_ms:.1f} ms on the host")
     if not rows:
@@ -409,20 +556,23 @@ def phase_small_reference(dev) -> None:
     rng = np.random.default_rng(3)
     reqs = [(rng.integers(0, cfg.vocab_size, n), g)
             for n, g in ((5, 7), (12, 2), (20, 5), (6, 9), (3, 1), (9, 4))]
-    out = {}
-    for device in ("cpu", dev):
-        engine = ServeEngine(cfg, params, device=device)
-        sched = Scheduler(engine, batch_size=2, prefill_chunk=3,
-                          kv_page_size=4, attn_backend="cuda_paged")
-        for r in reqs:
-            sched.submit(*r)
-        out[str(device)] = {r.rid: tuple(r.generated) for r in sched.run()}
-    if out["cpu"] != out[str(dev)]:
-        fail(f"tiny model on the card gave other tokens than on the CPU: "
-             f"{out}")
-    print(f"small reference: tiny minitron ({cfg.d_model} wide, f32) "
-          f"serves {len(reqs)} requests to identical tokens on cuda and "
-          f"cpu")
+    for codec in ("none", "cluster"):
+        out = {}
+        for device in ("cpu", dev):
+            engine = ServeEngine(cfg, params, device=device)
+            sched = Scheduler(engine, batch_size=2, prefill_chunk=3,
+                              kv_page_size=4, attn_backend="cuda_paged",
+                              kv_codec=codec)
+            for r in reqs:
+                sched.submit(*r)
+            out[str(device)] = {r.rid: tuple(r.generated)
+                                for r in sched.run()}
+        if out["cpu"] != out[str(dev)]:
+            fail(f"tiny model (kv_codec={codec}) on the card gave other "
+                 f"tokens than on the CPU: {out}")
+        print(f"small reference: tiny minitron ({cfg.d_model} wide, f32), "
+              f"kv_codec={codec}, serves {len(reqs)} requests to identical "
+              f"tokens on cuda and cpu")
 
 
 def phase_fused_operands(engine, dev) -> None:
@@ -853,8 +1003,11 @@ def main() -> None:
     t_start = time.monotonic()
     phase_build()
     engine, expect = phase_register(dev)
-    kernels = [phase_huffman(engine, expect), phase_attention(dev)]
-    launches = phase_serve(engine)
+    kernels = [phase_huffman(engine, expect), *phase_attention(dev)]
+    launches, prompts, fp_warm = phase_serve(engine)
+    codec_launches = phase_serve_codec(engine, prompts, launches, fp_warm)
+    launches["paged_mixed_attention_codec"] = \
+        codec_launches["paged_mixed_attention_codec"]
     phase_fused_operands(engine, dev)
     del engine
     torch.cuda.empty_cache()

@@ -46,6 +46,13 @@ class NodeAssignment:
         pval = np.asarray(PREFIX_VAL)[node]
         return (pval.astype(np.int64) << ibits) | idx, plen + ibits
 
+    def avg_bits(self, hist: np.ndarray) -> float:
+        total = hist.sum()
+        if total == 0:
+            return 0.0
+        lens = np.asarray(CODE_LEN)[self.node_of]
+        return float((hist * lens).sum() / total)
+
     def decode_tables_flat(self) -> np.ndarray:
         """(160,) int32 concatenated tables for the decode kernels:
         [0:32) node0, [32:96) node1, [96:160) node2."""
@@ -95,3 +102,30 @@ def _pack_codes(vals: np.ndarray, lens: np.ndarray) -> tuple[np.ndarray, int]:
     words = bytes_.reshape(-1, 4).astype(np.uint32)
     words = (words[:, 0] << 24) | (words[:, 1] << 16) | (words[:, 2] << 8) | words[:, 3]
     return words.astype(np.uint32), nbits
+
+
+def decode_stream(words: np.ndarray, nbits: int, assign: NodeAssignment,
+                  count: int | None = None) -> np.ndarray:
+    """Scalar reference decoder (tests + oracle). Returns uint16 sequences."""
+    bits = np.unpackbits(
+        np.concatenate([((words >> s) & 0xFF).astype(np.uint8)[:, None]
+                        for s in (24, 16, 8, 0)], axis=1).ravel())[:nbits]
+    out = []
+    pos = 0
+    while pos < nbits and (count is None or len(out) < count):
+        node = 0
+        if bits[pos] == 1:
+            node = 1
+            if bits[pos + 1] == 1:
+                node = 2 if bits[pos + 2] == 0 else 3
+        plen = PREFIX_LEN[node]
+        ibits = INDEX_BITS[node]
+        idx = 0
+        for b in bits[pos + plen: pos + plen + ibits]:
+            idx = (idx << 1) | int(b)
+        if node < 3:
+            out.append(int(assign.tables[node][idx]))
+        else:
+            out.append(idx)
+        pos += plen + ibits
+    return np.asarray(out, dtype=np.uint16)

@@ -1,19 +1,22 @@
 // Ragged paged attention over slot page tables for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel repro/kernels/paged_attention.py
-// (paged_mixed_attention, _kernel) for fp pools.  Its plain PyTorch version
-// is repro_torch/kernels/paged_attention.py::paged_mixed_attention_plain.
+// (paged_mixed_attention, _kernel and _dequant) for fp pools and for the
+// int8 KV-page codec.  Its plain PyTorch version is
+// repro_torch/kernels/paged_attention.py::paged_mixed_attention_plain.
 //
 // Inputs: q (S, Q, H, D) f32, already scaled; page pools k (n_pages, rows,
-// KH, D) and v (n_pages, rows, KH, Dv) in f32 or bf16; table (S, P) int32
-// physical page per logical page; lengths (S,) valid positions including
-// this block; q_lens (S,) real query tokens per slot.  Query i < q_lens[s]
-// of slot s sits at position lengths[s] - q_lens[s] + i and attends keys at
-// positions <= its own (and > position - window when window > 0).  Logical
-// page j covers positions [j * logical, (j + 1) * logical); physical rows
-// at or past `logical` are layout padding and never read.  Page 0 is the
-// dummy sink: no valid position maps to it, so it is never read.  Rows
-// i >= q_lens[s] write zeros.  Output (S, Q, H, Dv) f32.
+// KH, D) and v (n_pages, rows, KH, Dv) in f32 or bf16, or int8 codebook
+// codes with f32 scale pools k_scales / v_scales (n_pages, rows) and a
+// (256,) f32 codebook; table (S, P) int32 physical page per logical page;
+// lengths (S,) valid positions including this block; q_lens (S,) real
+// query tokens per slot.  Query i < q_lens[s] of slot s sits at position
+// lengths[s] - q_lens[s] + i and attends keys at positions <= its own (and
+// > position - window when window > 0).  Logical page j covers positions
+// [j * logical, (j + 1) * logical); physical rows at or past `logical` are
+// layout padding and never read.  Page 0 is the dummy sink: no valid
+// position maps to it, so it is never read.  Rows i >= q_lens[s] write
+// zeros.  Output (S, Q, H, Dv) f32.
 //
 // Launch: one warp per (slot, query token, head), four warps a block.
 // Lanes split D (lane l holds elements l, l + 32, ...: 4 a lane at D = 128,
@@ -21,11 +24,26 @@
 // sums each score.  The warp walks only the positions its token may see,
 // through the slot's page table, with an online softmax in f32.
 //
-// What bounds it on the card: the K/V bytes it reads.  Each warp reads its
-// KV head's rows once; the G = H / KH warps of one GQA group read the same
-// rows, which the L1/L2 caches absorb.  This first version keeps one key
-// per loop step per warp — simple and right; tiling keys through shared
-// memory and tensor cores is later work.
+// Codec pools: each block stages the codebook in shared memory once; code
+// c of the row at (page, token) decodes to cb[c + 128] * scale[page, token]
+// (one scale serves every KV head of the token), one rounded f32 multiply,
+// and only then enters the dot and the value sum.  Every instruction after
+// the element load is shared with the fp pools (one template), and the
+// multiply-adds are pinned (__fmaf_rn), so the codec kernel gives the fp
+// kernel's bits on a pool decoded up front into f32.  "gather" reads the
+// codebook entry directly; "onehot" sums the 256 entries masked by
+// (index == code), as the reference's vector-unit lookup did: the same
+// bits, 256 times the work, kept as the bit-identity reference.
+//
+// What bounds it on the card: the K/V bytes it reads for a decode block
+// (int8 codes halve them against bf16), the score and value products for a
+// long prefill block.  Each warp reads its KV head's rows once; the G =
+// H / KH warps of one GQA group read the same rows, which the L1/L2 caches
+// absorb.  This first version keeps one key per loop step per warp, far
+// from either bound: the serial per-key steps of every warp (and, for
+// codec pools, the decode of each element in each of the G warps) set its
+// time.  Simple and right; tiling keys through shared memory and tensor
+// cores, and decoding each row once per GQA group, is later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -36,20 +54,50 @@ namespace {
 
 constexpr int kMaxPerLane = 8;       // D, Dv <= 256
 constexpr int kWarpsPerBlock = 4;
+constexpr int kLevels = 256;         // codebook entries
+constexpr int kZeroCode = 128;       // codebook index of code 0
+
+enum Mode { kFp = 0, kGather = 1, kOneHot = 2 };
 
 __device__ __forceinline__ float load_f32(const float* p) { return *p; }
 __device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
 }
 
-template <typename T>
+// Element e of a K or V row: the fp value, or the decoded codec value.
+template <typename T, int kMode>
+__device__ __forceinline__ float element(const T* row, int e, float row_scale,
+                                         const float* cb) {
+  if constexpr (kMode == kFp) {
+    return load_f32(row + e);
+  } else {
+    const int idx = (int)row[e] + kZeroCode;
+    float c;
+    if constexpr (kMode == kGather) {
+      c = cb[idx];
+    } else {
+      c = 0.f;
+      for (int i = 0; i < kLevels; ++i) c += i == idx ? cb[i] : 0.f;
+    }
+    return __fmul_rn(c, row_scale);
+  }
+}
+
+template <typename T, int kMode>
 __global__ void paged_attention_kernel(
     const float* __restrict__ q, const T* __restrict__ k_pages,
-    const T* __restrict__ v_pages, const int32_t* __restrict__ table,
-    const int32_t* __restrict__ lengths, const int32_t* __restrict__ q_lens,
-    float* __restrict__ out, int n_slots, int qn, int h, int kh, int d,
-    int dv, int page_rows, int logical, int pages_per_slot, int window,
-    float softcap, float scale) {
+    const T* __restrict__ v_pages, const float* __restrict__ k_scales,
+    const float* __restrict__ v_scales, const float* __restrict__ codebook,
+    const int32_t* __restrict__ table, const int32_t* __restrict__ lengths,
+    const int32_t* __restrict__ q_lens, float* __restrict__ out, int n_slots,
+    int qn, int h, int kh, int d, int dv, int page_rows, int logical,
+    int pages_per_slot, int window, float softcap, float scale) {
+  __shared__ float cb[kMode == kFp ? 1 : kLevels];
+  if constexpr (kMode != kFp) {
+    for (int i = threadIdx.x; i < kLevels; i += blockDim.x)
+      cb[i] = codebook[i];
+    __syncthreads();
+  }
   const int lane = threadIdx.x & 31;
   const long long warp =
       (long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
@@ -78,14 +126,21 @@ __global__ void paged_attention_kernel(
   const int32_t* trow = table + (long long)s * pages_per_slot;
   const int lo = window > 0 ? max(0, qpos - window + 1) : 0;
   for (int p = lo; p <= qpos; ++p) {
-    const long long row =
-        ((long long)trow[p / logical] * page_rows + p % logical) * kh + kvh;
+    const long long prow =             // (page, token) of position p
+        (long long)trow[p / logical] * page_rows + p % logical;
+    const long long row = prow * kh + kvh;
+    float ks = 1.f, vs = 1.f;
+    if constexpr (kMode != kFp) {
+      ks = k_scales[prow];
+      vs = v_scales[prow];
+    }
     const T* krow = k_pages + row * d;
     float part = 0.f;
 #pragma unroll
     for (int j = 0; j < kMaxPerLane; ++j) {
       const int e = lane + 32 * j;
-      if (e < d) part += qv[j] * load_f32(krow + e);
+      if (e < d) part = __fmaf_rn(qv[j], element<T, kMode>(krow, e, ks, cb),
+                                  part);
     }
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
@@ -95,12 +150,14 @@ __global__ void paged_attention_kernel(
     const float m_new = fmaxf(m, sc);
     const float alpha = expf(m - m_new);   // 0 on the first key
     const float pe = expf(sc - m_new);
-    l = l * alpha + pe;
+    l = __fmaf_rn(l, alpha, pe);
     const T* vrow = v_pages + row * dv;
 #pragma unroll
     for (int j = 0; j < kMaxPerLane; ++j) {
       const int e = lane + 32 * j;
-      if (e < dv) acc[j] = acc[j] * alpha + pe * load_f32(vrow + e);
+      if (e < dv)
+        acc[j] = __fmaf_rn(pe, element<T, kMode>(vrow, e, vs, cb),
+                           __fmul_rn(acc[j], alpha));
     }
     m = m_new;
   }
@@ -112,11 +169,30 @@ __global__ void paged_attention_kernel(
   }
 }
 
+template <typename T, int kMode>
+void launch(unsigned blocks, cudaStream_t st, const void* q,
+            const void* k_pages, const void* v_pages, const void* k_scales,
+            const void* v_scales, const void* codebook, const void* table,
+            const void* lengths, const void* q_lens, void* out, int n_slots,
+            int qn, int h, int kh, int d, int dv, int page_rows, int logical,
+            int pages_per_slot, int window, float softcap, float scale) {
+  paged_attention_kernel<T, kMode><<<blocks, 32 * kWarpsPerBlock, 0, st>>>(
+      (const float*)q, (const T*)k_pages, (const T*)v_pages,
+      (const float*)k_scales, (const float*)v_scales,
+      (const float*)codebook, (const int32_t*)table,
+      (const int32_t*)lengths, (const int32_t*)q_lens, (float*)out, n_slots,
+      qn, h, kh, d, dv, page_rows, logical, pages_per_slot, window, softcap,
+      scale);
+}
+
 }  // namespace
 
-// dtype: 0 = float32 pools, 1 = bfloat16 pools
+// pools: 0 = float32, 1 = bfloat16, 2 = int8 codes decoded by "gather",
+// 3 = int8 codes decoded by "onehot" (k_scales, v_scales and codebook are
+// read only for 2 and 3)
 extern "C" int paged_attention_launch(
-    const void* q, const void* k_pages, const void* v_pages, int dtype,
+    const void* q, const void* k_pages, const void* v_pages, int pools,
+    const void* k_scales, const void* v_scales, const void* codebook,
     const void* table, const void* lengths, const void* q_lens, void* out,
     int n_slots, int qn, int h, int kh, int d, int dv, int page_rows,
     int logical, int pages_per_slot, int window, float softcap, float scale,
@@ -125,24 +201,19 @@ extern "C" int paged_attention_launch(
   if (warps == 0) return (int)cudaGetLastError();
   const unsigned blocks =
       (unsigned)((warps + kWarpsPerBlock - 1) / kWarpsPerBlock);
-  const dim3 threads(32 * kWarpsPerBlock);
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0) {
-    paged_attention_kernel<float><<<blocks, threads, 0, st>>>(
-        (const float*)q, (const float*)k_pages, (const float*)v_pages,
-        (const int32_t*)table, (const int32_t*)lengths,
-        (const int32_t*)q_lens, (float*)out, n_slots, qn, h, kh, d, dv,
-        page_rows, logical, pages_per_slot, window, softcap, scale);
-  } else if (dtype == 1) {
-    paged_attention_kernel<__nv_bfloat16><<<blocks, threads, 0, st>>>(
-        (const float*)q, (const __nv_bfloat16*)k_pages,
-        (const __nv_bfloat16*)v_pages, (const int32_t*)table,
-        (const int32_t*)lengths, (const int32_t*)q_lens, (float*)out, n_slots,
-        qn, h, kh, d, dv, page_rows, logical, pages_per_slot, window, softcap,
-        scale);
-  } else {
-    return (int)cudaErrorInvalidValue;
+#define PAGED_ATTENTION_ARGS                                                 \
+  blocks, st, q, k_pages, v_pages, k_scales, v_scales, codebook, table,     \
+      lengths, q_lens, out, n_slots, qn, h, kh, d, dv, page_rows, logical,  \
+      pages_per_slot, window, softcap, scale
+  switch (pools) {
+    case 0: launch<float, kFp>(PAGED_ATTENTION_ARGS); break;
+    case 1: launch<__nv_bfloat16, kFp>(PAGED_ATTENTION_ARGS); break;
+    case 2: launch<int8_t, kGather>(PAGED_ATTENTION_ARGS); break;
+    case 3: launch<int8_t, kOneHot>(PAGED_ATTENTION_ARGS); break;
+    default: return (int)cudaErrorInvalidValue;
   }
+#undef PAGED_ATTENTION_ARGS
   return (int)cudaGetLastError();
 }
 

@@ -1,12 +1,14 @@
 """Ragged paged attention: CUDA kernel + plain PyTorch version.
 
 Replaces the Pallas TPU kernel ``repro/kernels/paged_attention.py::
-paged_mixed_attention`` (``_kernel``) for fp page pools.  The kernel is
+paged_mixed_attention`` (``_kernel``, ``_dequant``) for fp page pools and
+for the int8 KV-page codec (``kv_codec="cluster"``).  The kernel is
 ``csrc/paged_attention.cu``: one warp per (slot, query token, head), lanes
 splitting the head dim, an online softmax over the positions the token
-may see, walked through the slot's page table.  What bounds it on the card
-is the K/V bytes it reads; the source note says how this first version
-stands against that.
+may see, walked through the slot's page table; codec pools are decoded
+in-kernel from a codebook staged in shared memory.  The source note says
+what bounds it on the card and how this first version stands against
+that.
 
 Layout contract (shared with ``runtime.scheduler.SlotPool``), as in the
 reference: slot ``s`` contributes ``q_lens[s]`` tokens at positions
@@ -15,8 +17,15 @@ a valid position; ``page_size`` is the logical page length and physical
 rows at or past it are padding; rows ``i >= q_lens[s]`` are padding (both
 versions write zeros there, the reference wrote finite garbage).
 
-Not ported yet (they raise): the int8 KV codec, the MLA second score
-operand ``q2``/``k2_pages``, and ``pages_per_step > 1``.
+Codec pools (``k_scales`` given): ``k_pages``/``v_pages`` hold int8
+codebook codes and ``k_scales``/``v_scales`` (n_pages, rows) one f32
+scale per (page, token), shared by every KV head; each element decodes to
+``codebook[code + 128] * scale`` before it is used.  The result equals the
+fp path on the pool decoded up front into f32, bit for bit, on either
+device.
+
+Not ported yet (they raise): the MLA second score operand
+``q2``/``k2_pages`` (and its ``k2_scales``), and ``pages_per_step > 1``.
 """
 
 from __future__ import annotations
@@ -25,31 +34,68 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, kv_codec
 
 NEG_INF = -1e30
+# the kernel's pool codes: fp pools by dtype, codec pools by dequant mode
 _POOL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DEQUANT = {"gather": 2, "onehot": 3}
 _MAX_HEAD_DIM = 256
 
 
-def _check_unported(q2, k2_pages, k_scales, v_scales, k2_scales, codebook,
-                    pages_per_step) -> None:
-    if q2 is not None or k2_pages is not None:
+def _check_unported(q2, k2_pages, k2_scales, pages_per_step) -> None:
+    if q2 is not None or k2_pages is not None or k2_scales is not None:
         raise NotImplementedError("the MLA second score operand (q2, "
-                                  "k2_pages) is not ported yet")
-    if any(x is not None for x in (k_scales, v_scales, k2_scales, codebook)):
-        raise NotImplementedError("the int8 KV codec is not ported yet")
+                                  "k2_pages, k2_scales) is not ported yet")
     if pages_per_step != 1:
         raise NotImplementedError("pages_per_step > 1 is not ported yet")
 
 
+def _check_codec(k_pages, v_pages, k_scales, v_scales, codebook,
+                 dequant) -> bool:
+    """True for codec pools; raise on a half-given or mistyped codec."""
+    given = [x is not None for x in (k_scales, v_scales, codebook)]
+    if not any(given):
+        return False
+    if not all(given):
+        raise ValueError("the codec needs k_scales, v_scales and codebook")
+    if k_pages.dtype != torch.int8 or v_pages.dtype != torch.int8:
+        raise ValueError(f"codec pools must be int8 codes, got "
+                         f"{k_pages.dtype} / {v_pages.dtype}")
+    rows = k_pages.shape[:2]
+    if k_scales.shape != rows or v_scales.shape != v_pages.shape[:2]:
+        raise ValueError(f"scale pools {tuple(k_scales.shape)} / "
+                         f"{tuple(v_scales.shape)} must be (n_pages, rows) "
+                         f"= {tuple(rows)}")
+    if codebook.shape != (kv_codec.LEVELS,):
+        raise ValueError(f"codebook must be ({kv_codec.LEVELS},), got "
+                         f"{tuple(codebook.shape)}")
+    if dequant not in _DEQUANT:
+        raise ValueError(f"dequant {dequant!r} not in {tuple(_DEQUANT)}")
+    return True
+
+
+def decode_pool(pages: torch.Tensor, scales: torch.Tensor,
+                codebook: torch.Tensor) -> torch.Tensor:
+    """An int8 code pool (n_pages, rows, KH, D) decoded up front into f32
+    with its (n_pages, rows) scales, as ``kv_codec.decode`` does: the fp
+    pool the codec stands for."""
+    return codebook[pages.long() + kv_codec.ZERO_CODE] \
+        * scales[..., None, None]
+
+
 def paged_mixed_attention_plain(q, k_pages, v_pages, table, lengths, q_lens,
+                                k_scales=None, v_scales=None, codebook=None,
                                 *, window: int = 0, softcap_val: float = 0.0,
                                 scale: float = 1.0,
                                 page_size: int = 0) -> torch.Tensor:
-    """Plain PyTorch version: gather each slot's pages into a contiguous
+    """Plain PyTorch version: decode codec pools up front (when
+    ``k_scales`` is given), gather each slot's pages into a contiguous
     view, score every (query, key) pair with the causal/window/ragged
     masks, softmax, and weight the values.  (S, Q, H, Dv) float32."""
+    if k_scales is not None:
+        k_pages = decode_pool(k_pages, k_scales, codebook)
+        v_pages = decode_pool(v_pages, v_scales, codebook)
     s_n, qn, h, d = q.shape
     _, page, kh, _ = k_pages.shape
     dv = v_pages.shape[-1]
@@ -83,14 +129,18 @@ def paged_mixed_attention(q, k_pages, v_pages, table, lengths, q_lens,
                           v_scales=None, k2_scales=None, codebook=None, *,
                           window: int = 0, softcap_val: float = 0.0,
                           scale: float = 1.0, page_size: int = 0,
-                          pages_per_step: int = 1) -> torch.Tensor:
+                          pages_per_step: int = 1,
+                          dequant: str = "gather") -> torch.Tensor:
     """out (S, Q, H, Dv) float32 — ragged mixed-step paged attention.
 
     ``q`` (S, Q, H, D) is pre-scaled (GQA callers fold ``D ** -0.5`` in);
-    ``scale`` multiplies the summed scores.  CUDA tensors go through the
-    kernel (or raise); CPU tensors take the plain version."""
-    _check_unported(q2, k2_pages, k_scales, v_scales, k2_scales, codebook,
-                    pages_per_step)
+    ``scale`` multiplies the summed scores.  With ``k_scales`` the pools
+    are int8 codec codes decoded against ``codebook`` (``dequant``:
+    ``"gather"`` or ``"onehot"``, the same bits).  CUDA tensors go through
+    the kernel (or raise); CPU tensors take the plain version."""
+    _check_unported(q2, k2_pages, k2_scales, pages_per_step)
+    codec = _check_codec(k_pages, v_pages, k_scales, v_scales, codebook,
+                         dequant)
     s_n, qn, h, d = q.shape
     n_pages, page, kh, dk = k_pages.shape
     dv = v_pages.shape[-1]
@@ -102,33 +152,47 @@ def paged_mixed_attention(q, k_pages, v_pages, table, lengths, q_lens,
                          f"(KH={kh}, D={dk})")
     if q.device.type == "cpu":
         return paged_mixed_attention_plain(
-            q, k_pages, v_pages, table, lengths, q_lens, window=window,
-            softcap_val=softcap_val, scale=scale, page_size=page_size)
+            q, k_pages, v_pages, table, lengths, q_lens, k_scales, v_scales,
+            codebook, window=window, softcap_val=softcap_val, scale=scale,
+            page_size=page_size)
     if not q.is_cuda:
         raise ValueError(f"unsupported device {q.device}")
-    if k_pages.dtype not in _POOL_DTYPES or v_pages.dtype != k_pages.dtype:
-        raise ValueError(f"pools must both be float32 or bfloat16, got "
-                         f"{k_pages.dtype} / {v_pages.dtype}")
+    if codec:
+        pools = _DEQUANT[dequant]
+    elif k_pages.dtype in _POOL_DTYPES and v_pages.dtype == k_pages.dtype:
+        pools = _POOL_DTYPES[k_pages.dtype]
+    else:
+        raise ValueError(f"pools must both be float32 or bfloat16 (or int8 "
+                         f"codes with scales), got {k_pages.dtype} / "
+                         f"{v_pages.dtype}")
     if max(d, dv) > _MAX_HEAD_DIM:
         raise ValueError(f"head dims {d}/{dv} exceed {_MAX_HEAD_DIM}")
     q = q.float().contiguous()
     table = table.to(torch.int32).contiguous()
     lengths = lengths.to(torch.int32).contiguous()
     q_lens = q_lens.to(torch.int32).contiguous()
-    for name, t in (("k_pages", k_pages), ("v_pages", v_pages),
-                    ("table", table), ("lengths", lengths),
-                    ("q_lens", q_lens)):
+    named = [("k_pages", k_pages), ("v_pages", v_pages), ("table", table),
+             ("lengths", lengths), ("q_lens", q_lens)]
+    if codec:
+        named += [("k_scales", k_scales), ("v_scales", v_scales),
+                  ("codebook", codebook)]
+        if any(t.dtype != torch.float32 for t in (k_scales, v_scales,
+                                                   codebook)):
+            raise ValueError("scales and codebook must be float32")
+    for name, t in named:
         if t.device != q.device or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous on {q.device}")
     out = torch.empty((s_n, qn, h, dv), dtype=torch.float32, device=q.device)
     lib = _build.load("paged_attention")
     fn = lib.paged_attention_launch
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] \
-        + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 \
+        + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 \
         + [ctypes.c_float] * 2 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    code = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-              _POOL_DTYPES[k_pages.dtype], table.data_ptr(),
+    codec_ptrs = [t.data_ptr() for t in (k_scales, v_scales, codebook)] \
+        if codec else [None] * 3
+    code = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), pools,
+              *codec_ptrs, table.data_ptr(),
               lengths.data_ptr(), q_lens.data_ptr(), out.data_ptr(),
               s_n, qn, h, kh, d, dv, page, logical, table.shape[1],
               int(window), float(softcap_val), float(scale),

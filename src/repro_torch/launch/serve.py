@@ -6,8 +6,10 @@ WeightStore and rebuilt each step from the decode-tile cache (the decode
 kernel runs on misses); requests flow through the continuous-batching
 scheduler, whose every iteration is one ragged mixed step of prefill
 chunks and decode tokens over the KV page pools (the paged-attention
-kernel walks the page tables).  It prints the same summary lines as the
-reference launcher for what it supports.
+kernel walks the page tables).  ``--kv-codec cluster`` keeps the pages as
+int8 codebook codes with per-token scales, decoded inside the kernel.  It
+prints the same summary lines as the reference launcher for what it
+supports.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --scale tiny --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --scale tiny --device cuda
@@ -29,9 +31,11 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs import base as cfgs
+from repro_torch.kernels import kv_codec as kvc
 from repro_torch.models.transformer import init_params
 from repro_torch.runtime import Scheduler, ServeEngine
 from repro_torch.runtime.decode_cache import POLICIES
+from repro_torch.tree import tree_leaves
 
 TINY_OVERRIDES = dict(
     num_layers=2, scan_repeats=2, prefix_kinds=(), suffix_kinds=(),
@@ -43,6 +47,26 @@ TINY_OVERRIDES = dict(
 def tiny_config(arch: str):
     """The reference's ``--scale tiny`` config for a dense arch."""
     return cfgs.get_config(arch).scaled(**TINY_OVERRIDES)
+
+
+def codec_report(pool, m) -> None:
+    """The reference launcher's three codec lines: page bytes and capacity,
+    the error bound, and the at-rest Huffman report over the resident int8
+    codes (a report only: the pool stays raw int8 for in-kernel decode)."""
+    print(f"kv codec (cluster): page {pool.page_bytes_fp} fp bytes -> "
+          f"{pool.page_bytes_resident} resident bytes "
+          f"({m.kv_capacity_multiplier():.2f}x effective capacity, "
+          f"{m.kv_bytes_avoided} resident bytes avoided)")
+    print(f"kv codec error bound: {m.kv_codec_error_bound:.3e} "
+          f"(max per-token scale / 254)")
+    codes = [c.cpu().numpy().ravel() for c in tree_leaves(pool.kcache)
+             if c.dtype == torch.int8]
+    if codes:
+        rep = kvc.huffman_report(np.concatenate(codes))
+        print(f"kv codec at-rest huffman: {rep['avg_bits']:.2f} "
+              f"bits/code ({rep['ratio']:.2f}x vs int8), clustered "
+              f"{rep['clustered_avg_bits']:.2f} bits "
+              f"({rep['clustered_ratio']:.2f}x)")
 
 
 def main(argv=None):
@@ -75,6 +99,11 @@ def main(argv=None):
                     help="tokens per KV page")
     ap.add_argument("--kv-pages", type=int, default=None,
                     help="page-pool size (default: fully backs every slot)")
+    ap.add_argument("--kv-codec", choices=list(kvc.KV_CODECS),
+                    default="none",
+                    help="KV page-pool codec: none (fp pages) or cluster "
+                         "(int8 codebook codes + per-token f32 scales, "
+                         "decoded inside the paged-attention kernel)")
     ap.add_argument("--no-prefetch", action="store_true",
                     help="disable next-layer tile prefetch")
     ap.add_argument("--no-compress", action="store_true",
@@ -113,6 +142,7 @@ def main(argv=None):
                       kv_page_size=args.kv_page_size,
                       kv_pages=args.kv_pages,
                       attn_backend=args.attn_backend,
+                      kv_codec=args.kv_codec,
                       log_every=args.log_every)
     rng = np.random.default_rng(0)
     for _ in range(n_requests):
@@ -160,6 +190,8 @@ def main(argv=None):
               f"installing prefilled caches, "
               f"{m.kv_prefill_gather_bytes_avoided} avoided by "
               f"mixed-step in-pool prefill")
+    if args.kv_codec == "cluster":
+        codec_report(sched._pool, m)
     if engine.compressed:
         st = engine.cache.stats()
         print(f"decode-tile cache ({st['policy']}): {st['hits']} hits / "

@@ -4,7 +4,9 @@
 Only the in-kernel backend is ported: the cache leaves are the physical
 page pools shared by every slot, this step's token block is scattered into
 each slot's pages, and ``kernels.paged_attention`` walks the page table.
-The gathered backend's lane paths wait for a later slice.
+Under ``kv_codec="cluster"`` the pools hold int8 codebook codes with f32
+scale pools beside them, decoded inside the kernel.  The gathered
+backend's lane paths wait for a later slice.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import dataclasses
 
 import torch
 
+from repro_torch.kernels import kv_codec
 from repro_torch.kernels.paged_attention import paged_mixed_attention
 from repro_torch.models.layers import apply_rope, dense_init
 
@@ -72,9 +75,15 @@ def _qkv(p, x, cfg, positions):
 
 def attn_apply(p: dict, x: torch.Tensor, cfg, *, kind: str, cache: dict,
                pos: torch.Tensor, paged: PagedContext,
-               q_lens: torch.Tensor | None = None):
+               q_lens: torch.Tensor | None = None,
+               scales: dict | None = None):
     """-> (y, cache): one ragged block of 1..s tokens per slot straight
-    over the page pools ``cache`` ({"k", "v"}, updated in place)."""
+    over the page pools ``cache`` ({"k", "v"}, updated in place).
+
+    ``scales`` (``kv_codec="cluster"``): the {"k", "v"} scale pools
+    (n_pages, page) f32 beside int8 code pools; this step's K/V are
+    encoded (one scale per (slot, token)), codes and scales are written
+    in place, and the return grows to ``(y, cache, scales)``."""
     b, s, _ = x.shape
     window = cfg.window if kind in ("swa", "local") else 0
     ql = (torch.full((b,), s, dtype=torch.int32, device=x.device)
@@ -82,11 +91,21 @@ def attn_apply(p: dict, x: torch.Tensor, cfg, *, kind: str, cache: dict,
     positions = pos[:, None] + torch.arange(s, device=x.device)[None]
     q, k, v = _qkv(p, x, cfg, positions)
     hd = cfg.head_dim
+    kw = {}
+    if scales is not None:
+        k, k_sc = kv_codec.encode(k, axes=(-2, -1))
+        v, v_sc = kv_codec.encode(v, axes=(-2, -1))
+        scales = {"k": paged.write(scales["k"], k_sc, pos, q_lens),
+                  "v": paged.write(scales["v"], v_sc, pos, q_lens)}
+        kw = dict(k_scales=scales["k"], v_scales=scales["v"],
+                  codebook=kv_codec.codebook(x.device))
     k_pool = paged.write(cache["k"], k, pos, q_lens)
     v_pool = paged.write(cache["v"], v, pos, q_lens)
     out = paged_mixed_attention(
         q.float() * hd ** -0.5, k_pool, v_pool, paged.table, pos + ql, ql,
         window=window, softcap_val=cfg.attn_logit_softcap,
-        page_size=paged.page_size)[..., :hd]
+        page_size=paged.page_size, **kw)[..., :hd]
     y = out.reshape(b, s, -1).to(x.dtype) @ p["wo"]
+    if scales is not None:
+        return y, {"k": k_pool, "v": v_pool}, scales
     return y, {"k": k_pool, "v": v_pool}

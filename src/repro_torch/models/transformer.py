@@ -8,8 +8,9 @@ carries across leaf for leaf (:func:`params_from_numpy`).  The scan over
 repeats becomes a Python loop over the stacked leaves' first axis.
 
 Ported so far: dense attention blocks (kind ``"attn"``, the minitron
-stack) and the ragged :func:`mixed_step` of the in-kernel backend.  Other
-block kinds raise ``NotImplementedError``.
+stack) and the ragged :func:`mixed_step` of the in-kernel backend, with
+fp pools or ``kv_codec="cluster"`` int8 code pools plus a scale-pool tree.
+Other block kinds raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -51,18 +52,21 @@ def block_init(kind: str, cfg, gen, dtype, device) -> dict:
 
 
 def block_apply(kind: str, cfg, p: dict, x: torch.Tensor, *, cache, pos,
-                paged, q_lens=None):
-    """-> (x, cache): attention over the page pools, then the MLP
-    (binarised when ``cfg.binarize_mlp``, the compressed serving mode)."""
+                paged, q_lens=None, scales=None):
+    """-> (x, cache), or (x, cache, scales) with ``scales``: attention over
+    the page pools, then the MLP (binarised when ``cfg.binarize_mlp``, the
+    compressed serving mode).  ``scales`` holds this block's codec scale
+    pools (same keys as the cache) and implies int8 code pools."""
     h = rms_norm(p["ln1"], x, cfg.norm_eps)
-    y, new_cache = attn.attn_apply(p["attn"], h, cfg, kind=kind, cache=cache,
-                                   pos=pos, paged=paged, q_lens=q_lens)
+    y, *state = attn.attn_apply(p["attn"], h, cfg, kind=kind, cache=cache,
+                                pos=pos, paged=paged, q_lens=q_lens,
+                                scales=scales)
     x = x + y
     if "mlp" in p:
         h2 = rms_norm(p["ln2"], x, cfg.norm_eps)
         x = x + mlp_apply(p["mlp"], h2, cfg.mlp_act,
                           binarized=cfg.binarize_mlp)
-    return x, new_cache
+    return (x, *state)
 
 
 def block_cache_spec(kind: str, cfg, batch: int, max_len: int) -> dict:
@@ -145,29 +149,31 @@ def _unembed(cfg, params, x):
     return softcap(x @ head, cfg.final_logit_softcap).float()
 
 
-def _run_stack(cfg, params, cache, x, *, pos, ctx, q_lens):
-    """prefix + scan repeats + suffix blocks over the page pools, which
-    each block updates in place -> (x, cache)."""
-    for kind, p, c in zip(cfg.prefix_kinds, params["prefix"],
-                          cache["prefix"]):
-        x, _ = block_apply(kind, cfg, p, x, cache=c, pos=pos, paged=ctx,
-                           q_lens=q_lens)
+def _run_stack(cfg, params, cache, x, *, pos, ctx, q_lens, scales=None):
+    """prefix + scan repeats + suffix blocks over the page pools and, under
+    the codec, the scale pools (a tree mirroring ``cache``), which each
+    block updates in place -> x.  Scan-stacked pools are sliced per repeat
+    (``a[r]``, a view), so every write lands in the caller's trees."""
+    def block(kind, p, x, at):
+        return block_apply(kind, cfg, p, x, cache=at(cache), pos=pos,
+                           paged=ctx, q_lens=q_lens,
+                           scales=None if scales is None else at(scales))[0]
+
+    for i, kind in enumerate(cfg.prefix_kinds):
+        x = block(kind, params["prefix"][i], x, lambda t: t["prefix"][i])
     for r in range(cfg.scan_repeats):
         for i, kind in enumerate(cfg.scan_pattern):
-            name = f"b{i}"
-            x, _ = block_apply(
-                kind, cfg, tree_map(lambda a: a[r], params["scan"][name]), x,
-                cache=tree_map(lambda a: a[r], cache["scan"][name]), pos=pos,
-                paged=ctx, q_lens=q_lens)
-    for kind, p, c in zip(cfg.suffix_kinds, params["suffix"],
-                          cache["suffix"]):
-        x, _ = block_apply(kind, cfg, p, x, cache=c, pos=pos, paged=ctx,
-                           q_lens=q_lens)
-    return x, cache
+            x = block(kind, tree_map(lambda a: a[r], params["scan"][f"b{i}"]),
+                      x, lambda t: tree_map(lambda a: a[r],
+                                            t["scan"][f"b{i}"]))
+    for i, kind in enumerate(cfg.suffix_kinds):
+        x = block(kind, params["suffix"][i], x, lambda t: t["suffix"][i])
+    return x
 
 
 def mixed_step(cfg, params, cache, table, tokens, poss, q_lens, *,
-               paged_flags: tuple, page_size: int, pages_per_step: int = 1):
+               paged_flags: tuple, page_size: int, pages_per_step: int = 1,
+               scales=None):
     """One mixed serving step for every slot straight over the page pools:
     slot ``s`` contributes ``q_lens[s]`` tokens — a prefill chunk, one
     decode token, or nothing — out of the padded block ``tokens`` (S, Q),
@@ -177,7 +183,12 @@ def mixed_step(cfg, params, cache, table, tokens, poss, q_lens, *,
     physical page pool ``(repeats?, n_pages, page, KH, D)``; ``table``
     (S, P) maps logical to physical pages.  The pools are updated in place
     and returned.  -> (logits (S, Q, V) f32, cache); rows past
-    ``q_lens[s]`` are padding the caller ignores."""
+    ``q_lens[s]`` are padding the caller ignores.
+
+    ``scales`` (``kv_codec="cluster"``): the scale-pool tree, same tree as
+    ``cache`` with f32 ``(repeats?, n_pages, page)`` pools, beside int8
+    code pools; it is updated in place too and the return grows to
+    ``(logits, cache, scales)``."""
     if not all(paged_flags):
         raise NotImplementedError("lane-backed (non-pageable) cache leaves "
                                   "are not ported yet")
@@ -185,7 +196,9 @@ def mixed_step(cfg, params, cache, table, tokens, poss, q_lens, *,
         raise NotImplementedError("pages_per_step > 1 is not ported yet")
     ctx = attn.PagedContext(table=table, page_size=page_size)
     x = _embed_step(cfg, params, tokens)
-    x, cache = _run_stack(cfg, params, cache, x, pos=poss, ctx=ctx,
-                          q_lens=q_lens)
+    x = _run_stack(cfg, params, cache, x, pos=poss, ctx=ctx, q_lens=q_lens,
+                   scales=scales)
     x = rms_norm(params["final_norm"], x, cfg.norm_eps)
+    if scales is not None:
+        return _unembed(cfg, params, x), cache, scales
     return _unembed(cfg, params, x), cache

@@ -5,9 +5,10 @@ Same names and semantics as the reference: ``slot_steps`` /
 ``capacity_steps`` give occupancy, the chunk counters track chunked
 prefill, the page gauges track the KV pool, and the KV gather counters
 record the copies the in-kernel backend avoided (they must read zero
-moved, on the prefill and the decode path).  Codec, prefix-sharing and
-speculation counters, and the Prometheus registry, come with those
-features in later slices.
+moved, on the prefill and the decode path), and the codec counters the
+resident KV bytes ``kv_codec="cluster"`` keeps out of the pool.
+Prefix-sharing and speculation counters, and the Prometheus registry,
+come with those features in later slices.
 """
 
 from __future__ import annotations
@@ -48,6 +49,16 @@ class ServeMetrics:
     kv_gather_bytes_avoided: int = 0   # copies the in-kernel backend skipped
     kv_prefill_gather_bytes: int = 0   # prefill-path install copies
     kv_prefill_gather_bytes_avoided: int = 0  # install copies skipped
+    kv_codec_bytes_fp: int = 0         # per-step resident page bytes the
+    #                                    pool would hold uncompressed
+    #                                    (kv_codec="cluster" only)
+    kv_codec_bytes_resident: int = 0   # per-step resident page bytes the
+    #                                    codec pool holds (int8 codes +
+    #                                    per-token f32 scales)
+    kv_bytes_avoided: int = 0          # fp - resident: device bytes the
+    #                                    KV codec kept out of the pool
+    kv_codec_error_bound: float = 0.0  # worst elementwise reconstruction
+    #                                    error bound seen (max scale / 254)
     _t0: float = dataclasses.field(default_factory=time.monotonic)
     ttft_hist: Histogram = dataclasses.field(default_factory=Histogram)
     tpot_hist: Histogram = dataclasses.field(default_factory=Histogram)
@@ -86,6 +97,26 @@ class ServeMetrics:
     def record_prefill_gather(self, moved: int, avoided: int) -> None:
         self.kv_prefill_gather_bytes += moved
         self.kv_prefill_gather_bytes_avoided += avoided
+
+    def record_kv_codec(self, fp_bytes: int, resident_bytes: int) -> None:
+        """Resident KV pool bytes after one decode step under
+        ``kv_codec="cluster"``: what the live pages would weigh at fp vs
+        what the code pool holds; the difference accumulates into
+        ``kv_bytes_avoided``."""
+        self.kv_codec_bytes_fp += fp_bytes
+        self.kv_codec_bytes_resident += resident_bytes
+        self.kv_bytes_avoided += fp_bytes - resident_bytes
+
+    def record_kv_codec_error(self, bound: float) -> None:
+        """Worst-case elementwise KV reconstruction error bound of the
+        resident pool (monotone max across runs)."""
+        self.kv_codec_error_bound = max(self.kv_codec_error_bound, bound)
+
+    def kv_capacity_multiplier(self) -> float:
+        """Effective-capacity multiplier of the KV codec: fp bytes per
+        resident byte (1.0 when the codec is off or nothing resided)."""
+        return self.kv_codec_bytes_fp / self.kv_codec_bytes_resident \
+            if self.kv_codec_bytes_resident else 1.0
 
     def record_decode_step(self, n_tokens: int, dt: float,
                            n_slots: int = 0) -> None:
@@ -187,6 +218,10 @@ class ServeMetrics:
                 f"{_fmt_bytes(self.kv_prefill_gather_bytes)} "
                 f"(avoided "
                 f"{_fmt_bytes(self.kv_prefill_gather_bytes_avoided)})")
+        if self.kv_bytes_avoided:
+            parts.append(
+                f"kv codec {self.kv_capacity_multiplier():.2f}x "
+                f"(avoided {_fmt_bytes(self.kv_bytes_avoided)})")
         if self.ttft_hist.n:
             p50, p99 = self.ttft_hist.percentiles(50, 99)
             parts.append(f"ttft p50 {p50 * 1000:.0f}ms p99 {p99 * 1000:.0f}ms")

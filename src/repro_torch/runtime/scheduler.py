@@ -21,10 +21,14 @@ Invariants, as in the reference:
   * no mid-flight OOM — admission reserves every page the request can ever
     need; allocation during serving draws from that reservation.
 
+Under ``kv_codec="cluster"`` the page pools hold int8 codebook codes with
+one f32 scale per (page, token) in a scale-pool tree beside them; each
+step encodes its K/V into them and the kernel decodes them in place.
+
 Not ported yet, and refused with ``NotImplementedError`` rather than
 served some other way: the ``gathered`` backend, monolithic prefill,
-``mode="wave"``, ``kv_codec="cluster"``, prefix sharing, speculative
-decoding and the kernel autotuner.
+``mode="wave"``, prefix sharing, speculative decoding and the kernel
+autotuner.
 """
 
 from __future__ import annotations
@@ -37,6 +41,8 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.kernels import kv_codec as kv_codec_mod
+from repro_torch.kernels.kv_codec import KV_CODECS
 from repro_torch.models.api import (ATTN_BACKENDS, cache_layout, get_model,
                                     supports_chunked_prefill,
                                     supports_paged_attention)
@@ -171,11 +177,13 @@ class ServeEngine:
         return supports_paged_attention(self.cfg)
 
     def mixed_step(self, params, kcache, table, toks, poss, q_lens, *,
-                   paged_flags: tuple, page_size: int):
+                   paged_flags: tuple, page_size: int, kv_scales=None):
         """One ragged mixed step for every slot over the page pools:
         table (S, P), toks (S, Q), poss (S,), q_lens (S,) host int arrays
         -> (logits (S, Q, V) f32 on device, cache with pools updated in
-        place)."""
+        place).  ``kv_scales`` (``kv_codec="cluster"``): the scale-pool
+        tree beside int8 code pools, updated in place too; the return
+        grows to ``(logits, cache, scales)``."""
         dev = self.device
 
         def on_dev(a):
@@ -185,7 +193,7 @@ class ServeEngine:
             return self.api.mixed_step(
                 self.cfg, params, kcache, on_dev(table), on_dev(toks),
                 on_dev(poss), on_dev(q_lens), paged_flags=paged_flags,
-                page_size=page_size)
+                page_size=page_size, scales=kv_scales)
 
     def step_params(self):
         """Per-step serving params (tile-cache-served when compressed)."""
@@ -230,15 +238,25 @@ class SlotPool:
     pool ``(repeats?, n_pages, page_size, KH, D)`` on the engine's device,
     handed with the page table to ``mixed_step``, whose kernel walks the
     table in place.  Pages are allocated on demand as a slot's writes
-    reach them and released at retire."""
+    reach them and released at retire.
+
+    ``kv_codec="cluster"``: the pools hold int8 codebook codes and
+    ``kscales`` is a tree of the same shape with one f32 scale pool
+    ``(repeats?, n_pages, page_size)`` at each leaf; ``page_bytes_fp`` and
+    ``page_bytes_resident`` give a physical page's bytes over every leaf
+    without and with the codec."""
 
     def __init__(self, engine: ServeEngine, n_slots: int, slot_len: int,
                  *, page_size: int, n_pages: int | None = None,
-                 backend: str = "cuda_paged"):
+                 backend: str = "cuda_paged", kv_codec: str = "none"):
         if backend not in ATTN_BACKENDS:
             raise NotImplementedError(
                 f"attention backend {backend!r} is not ported; this port "
                 f"serves {ATTN_BACKENDS}")
+        if kv_codec not in KV_CODECS:
+            raise ValueError(f"unknown kv codec {kv_codec!r}; "
+                             f"choose from {KV_CODECS}")
+        self.codec = kv_codec == "cluster"
         if page_size is None or page_size <= 0:
             raise ValueError(f"page_size must be positive: {page_size}")
         self.engine = engine
@@ -274,15 +292,34 @@ class SlotPool:
         self.gather_bytes_per_step = 0
         self.gather_bytes_avoided_per_step = 2 * n_slots * sum(
             s.numel() * s.element_size() for s in leaves)
-        axes = iter(self._paged_axis)
+        # a physical page's bytes over every leaf: fp at rest vs the
+        # codec's int8 codes + one f32 scale per (page, token)
+        fp_page = codec_page = 0
+        for spec, ax in zip(leaves, self._paged_axis):
+            elems = spec.numel() // spec.shape[ax] * page_size
+            feat = int(np.prod(spec.shape[ax + 1:])) or 1
+            fp_page += elems * spec.element_size()
+            codec_page += elems + (elems // feat) * 4
+        self.page_bytes_fp = fp_page
+        self.page_bytes_resident = codec_page if self.codec else fp_page
 
-        def pool(spec):
-            ax = next(axes)
-            return torch.zeros((*spec.shape[:ax - 1], n_pages,
-                                page_size, *spec.shape[ax + 1:]),
-                               dtype=spec.dtype, device=engine.device)
+        def pools(leaf):
+            """One pool per cache leaf: (repeats?, n_pages, page_size),
+            then the trailing dims and dtype ``leaf(spec, ax)`` gives."""
+            axes = iter(self._paged_axis)
 
-        self.kcache = tree_map(pool, specs)
+            def make(spec):
+                ax = next(axes)
+                tail, dtype = leaf(spec, ax)
+                return torch.zeros((*spec.shape[:ax - 1], n_pages,
+                                    page_size, *tail), dtype=dtype,
+                                   device=engine.device)
+            return tree_map(make, specs)
+
+        self.kcache = pools(lambda spec, ax: (
+            spec.shape[ax + 1:], torch.int8 if self.codec else spec.dtype))
+        self.kscales = pools(lambda spec, ax: ((), torch.float32)) \
+            if self.codec else None
 
     # -- page bookkeeping ---------------------------------------------------
     def pages_needed(self, cache_len: int) -> int:
@@ -336,12 +373,24 @@ class SlotPool:
         slot.prefilling = False
         slot.req = None
 
+    def codec_error_bound(self) -> float:
+        """Worst-case elementwise KV reconstruction error of the resident
+        pool (max per-token scale / 254); 0.0 when the codec is off."""
+        if not self.codec:
+            return 0.0
+        top = max((float(s.max()) for s in tree_leaves(self.kscales)),
+                  default=0.0)
+        return float(kv_codec_mod.error_bound(top))
+
     def mixed_step(self, params, toks, poss, q_lens) -> torch.Tensor:
         """One ragged mixed step over the pools -> logits (S, Q, V).
         Pages backing every written position must already be ensured."""
-        logits, self.kcache = self.engine.mixed_step(
+        logits, self.kcache, *scales = self.engine.mixed_step(
             params, self.kcache, self.table, toks, poss, q_lens,
-            paged_flags=self.paged_flags, page_size=self.page_size)
+            paged_flags=self.paged_flags, page_size=self.page_size,
+            kv_scales=self.kscales)
+        if scales:
+            self.kscales = scales[0]
         return logits
 
 
@@ -374,7 +423,6 @@ class Scheduler:
             (prefill_chunk is None, "monolithic prefill (prefill_chunk="
                                     "None)"),
             (kv_page_size is None, "unpaged KV lanes (kv_page_size=None)"),
-            (kv_codec != "none", f"kv_codec={kv_codec!r}"),
             (prefix_share, "prefix_share"),
             ((kernel_tune or "off") != "off", f"kernel_tune={kernel_tune!r}"),
             ((speculate or "off") != "off", f"speculate={speculate!r}"),
@@ -392,6 +440,9 @@ class Scheduler:
         if prefill_chunk <= 0:
             raise ValueError(f"prefill_chunk must be positive: "
                              f"{prefill_chunk}")
+        if kv_codec not in KV_CODECS:
+            raise ValueError(f"unknown kv codec {kv_codec!r}; "
+                             f"choose from {KV_CODECS}")
         self.engine = engine
         self.batch_size = batch_size
         self.slot_len = slot_len
@@ -400,6 +451,7 @@ class Scheduler:
         self.kv_page_size = kv_page_size
         self.kv_pages = kv_pages
         self.attn_backend = attn_backend
+        self.kv_codec = kv_codec
         self.log_every = log_every
         self.emit = emit
         self._queue: list[Request] = []
@@ -433,7 +485,8 @@ class Scheduler:
             self._pool = SlotPool(eng, self.batch_size, slot_len,
                                   page_size=self.kv_page_size,
                                   n_pages=self.kv_pages,
-                                  backend=self.attn_backend)
+                                  backend=self.attn_backend,
+                                  kv_codec=self.kv_codec)
         return self._pool
 
     # -- serving -----------------------------------------------------------
@@ -450,6 +503,9 @@ class Scheduler:
                     self._admit(pool, completed)
             with tel.timed("mixed_step"):
                 self._mixed_tick(pool, completed)
+        if pool.codec:
+            self.engine.metrics.record_kv_codec_error(
+                pool.codec_error_bound())
         return completed
 
     def _record_first_token(self, req: Request, tok: int) -> None:
@@ -587,5 +643,9 @@ class Scheduler:
                                  n_slots=pool.n_slots)
             m.record_pages(pool.pages_in_use(), pool.allocator.total)
             m.record_kv_gather(0, pool.gather_bytes_avoided_per_step)
+            if pool.codec:
+                m.record_kv_codec(pool.pages_in_use() * pool.page_bytes_fp,
+                                  pool.pages_in_use() *
+                                  pool.page_bytes_resident)
             if self.log_every and m.decode_steps % self.log_every == 0:
                 self.emit(self.engine.stats_line())

@@ -13,12 +13,13 @@ import pytest
 import torch
 
 from repro_torch.core import compression
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import kv_codec, ops, ref
 from repro_torch.kernels.binarize_pack import binarize_pack
 from repro_torch.kernels.binary_contraction import binary_contraction
 from repro_torch.kernels.fused_decode_contraction import fused_decode_matmul
 from repro_torch.kernels.huffman_decode import flat_table, huffman_decode
-from repro_torch.kernels.paged_attention import (paged_mixed_attention,
+from repro_torch.kernels.paged_attention import (decode_pool,
+                                                 paged_mixed_attention,
                                                  paged_mixed_attention_plain)
 from repro_torch.runtime.decode_cache import DecodeTileCache
 from repro_torch.runtime.weight_store import WeightStore
@@ -102,11 +103,11 @@ def test_evicting_decoded_tiles_frees_device_memory(dev):
     assert grown[None] - grown[4 * tile_bytes] == 12 * tile_bytes
 
 
-def _paged(dev, dtype, seed):
+def _paged(dev, dtype, seed, d=128):
     """Ragged block (chunk, decode, empty, short chunk) over pools whose
     rows 6..7 are layout padding; later table entries hit the sink."""
     rng = np.random.default_rng(seed)
-    s_n, qn, h, kh, d, rows, logical, pps = 4, 6, 8, 2, 128, 8, 6, 5
+    s_n, qn, h, kh, rows, logical, pps = 4, 6, 8, 2, 8, 6, 5
     lengths = np.array([22, 13, 0, 2], np.int32)
     q_lens = np.array([6, 1, 0, 2], np.int32)
     n_pages = s_n * pps + 1
@@ -150,6 +151,67 @@ def test_paged_attention_kernel_never_reads_sink_or_padding(dev):
     torch.cuda.synchronize()
     assert torch.isfinite(poisoned).all()
     assert torch.equal(clean, poisoned)
+
+
+def _codec_pools(dev, seed, d=128):
+    """``_paged``'s block over int8 codec pools: (q, codes, scales,
+    codebook, decoded f32 pools, table, lengths, q_lens, logical)."""
+    q, k, v, table, lengths, q_lens, logical = _paged(dev, torch.float32,
+                                                      seed, d)
+    (kc, ks), (vc, vs) = (kv_codec.encode(x, (-2, -1)) for x in (k, v))
+    cb = kv_codec.codebook(dev)
+    return (q, (kc, vc), (ks, vs), cb,
+            (decode_pool(kc, ks, cb), decode_pool(vc, vs, cb)), table,
+            lengths, q_lens, logical)
+
+
+@pytest.mark.parametrize("d", [128, 40])
+@pytest.mark.parametrize("window,cap", [(0, 0.0), (7, 0.0), (0, 4.0),
+                                        (5, 3.0)])
+def test_codec_kernel_vs_plain_and_bit_identical_to_fp(dev, window, cap, d):
+    """The codec kernel within 1e-4 of its plain version, and bit-identical
+    to the fp kernel on the pool decoded up front into f32, under both
+    dequant names."""
+    q, (kc, vc), (ks, vs), cb, (k, v), table, lengths, q_lens, logical = \
+        _codec_pools(dev, 7, d)
+    kw = dict(window=window, softcap_val=cap, page_size=logical)
+    fp = paged_mixed_attention(q, k, v, table, lengths, q_lens, **kw)
+    want = paged_mixed_attention_plain(q, kc, vc, table, lengths, q_lens,
+                                       ks, vs, cb, **kw)
+    for dequant in ("gather", "onehot"):
+        before = paged_mixed_attention.launches
+        got = paged_mixed_attention(q, kc, vc, table, lengths, q_lens,
+                                    k_scales=ks, v_scales=vs, codebook=cb,
+                                    dequant=dequant, **kw)
+        torch.cuda.synchronize()
+        assert paged_mixed_attention.launches == before + 1
+        assert torch.equal(got, fp), dequant
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+def test_codec_kernel_never_reads_sink_or_padding(dev):
+    q, (kc, vc), (ks, vs), cb, _, table, lengths, q_lens, logical = \
+        _codec_pools(dev, 8)
+    kw = dict(k_scales=ks, v_scales=vs, codebook=cb, page_size=logical)
+    clean = paged_mixed_attention(q, kc, vc, table, lengths, q_lens, **kw)
+    for codes, scales, val in ((kc, ks, 127), (vc, vs, -127)):
+        codes[0], codes[:, logical:] = val, val
+        scales[0], scales[:, logical:] = 1e6, 1e6
+    poisoned = paged_mixed_attention(q, kc, vc, table, lengths, q_lens, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(poisoned).all()
+    assert torch.equal(clean, poisoned)
+
+
+def test_codec_encode_on_the_card_equals_the_cpu(dev):
+    """The codes and scales written on the card are the CPU's for the same
+    bf16 K/V (true division, round half to even, f32 cast before amax)."""
+    gen = torch.Generator().manual_seed(9)
+    x = (torch.randn((64, 16, 8, 128), generator=gen) * 3).to(torch.bfloat16)
+    codes, scale = kv_codec.encode(x, (-2, -1))
+    dcodes, dscale = kv_codec.encode(x.to(dev), (-2, -1))
+    assert torch.equal(dcodes.cpu(), codes)
+    assert torch.equal(dscale.cpu(), scale)
 
 
 # --- binary kernels --------------------------------------------------------

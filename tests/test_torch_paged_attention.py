@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from repro.models.attention import chunk_attention, decode_attention
+from repro_torch.kernels import kv_codec
 from repro_torch.kernels.paged_attention import (paged_mixed_attention,
                                                  paged_mixed_attention_plain)
 
@@ -117,8 +118,15 @@ def test_poisoned_dummy_sink_and_padding_rows_are_inert():
 
 def test_unported_options_raise():
     c = paged_case(4, qn=1, q_lens=[1], lengths=[3])
-    with pytest.raises(NotImplementedError, match="codec"):
-        port(c, k_scales=torch.zeros(1))
+    # the int8 codec runs (tests/test_torch_kv_codec.py holds it to the
+    # reference); only the MLA part of it, k2_scales, still raises
+    zero_codes = np.zeros(c["k"].shape, np.int8)
+    scales = torch.zeros(c["k"].shape[:2])
+    out = port({**c, "k": zero_codes, "v": zero_codes}, k_scales=scales,
+               v_scales=scales, codebook=kv_codec.codebook())
+    assert out.shape == c["q"].shape and not out.any()
+    with pytest.raises(NotImplementedError, match="MLA"):
+        port(c, k2_scales=scales)
     with pytest.raises(NotImplementedError, match="pages_per_step"):
         port(c, pages_per_step=2)
     with pytest.raises(NotImplementedError, match="MLA"):

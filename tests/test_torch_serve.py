@@ -221,7 +221,7 @@ def test_mixed_path_copies_no_kv_and_leaks_no_pages(engines):
 @pytest.mark.parametrize("kw", [
     dict(attn_backend="gathered"), dict(mode="wave"),
     dict(prefill_chunk=None), dict(kv_page_size=None),
-    dict(kv_codec="cluster"), dict(prefix_share=True),
+    dict(prefix_share=True),
     dict(speculate="ngram"), dict(kernel_tune="auto")])
 def test_unported_flags_are_refused(engines, kw):
     args = dict(kv_page_size=4, prefill_chunk=3, attn_backend="cuda_paged")
