@@ -15,10 +15,15 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` with nvcc
   backend, with fp pools and again with ``kv_codec="cluster"`` (int8 code
   pools decoded in the kernel), and checks that the kernels were launched
   by those runs, that every request completed, that a second run gives
-  the same tokens, that ``WeightStore.fused_operands`` on a full-width
-  MLP matrix gives the materialised weights' binary product, and that a
-  small model served on the card gives the CPU's tokens, with and without
-  the codec;
+  the same tokens, and that ``WeightStore.fused_operands`` on a
+  full-width MLP matrix gives the materialised weights' binary product;
+* MLA: holds the paged-attention kernel's MLA second score operand (one
+  512-wide latent head that is key and value, a 64-wide rope operand,
+  128 query heads; fp and codec pools) against its plain version, then
+  serves deepseek-v2-236b at its published widths (depth cut to 2 layers,
+  one dense-MLP and one MoE block) the same way, with fp pools and with
+  the codec; a small minitron and a small deepseek served on the card
+  give the CPU's tokens, with and without the codec;
 * the paper's BNN: holds the binarize-pack, xnor-popcount contraction and
   fused Huffman-decode + contraction kernels against their plain versions
   bit for bit at every ReActNet-A block shape at batch 32 (and ragged
@@ -61,11 +66,13 @@ from repro_torch.kernels.huffman_decode import (  # noqa: E402
     flat_table, huffman_decode, pack_bitplane_tables)
 from repro_torch.kernels.paged_attention import (  # noqa: E402
     decode_pool, paged_mixed_attention, paged_mixed_attention_plain)
-from repro_torch.launch.serve import codec_report, tiny_config  # noqa: E402
+from repro_torch.launch.serve import (  # noqa: E402
+    TOO_DEEP_FOR_ONE_CARD, codec_report, cut_depth, tiny_config)
 from repro_torch.models import reactnet as rn  # noqa: E402
 from repro_torch.models.transformer import init_params  # noqa: E402
 from repro_torch.runtime import Scheduler, ServeEngine, ServeMetrics  # noqa: E402
-from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
+from repro_torch.tree import (  # noqa: E402
+    tree_leaves, tree_map, tree_map_with_path)
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 F32_OPS_PER_S = 67e12            # H100 SXM CUDA cores, an FMA counted as 2
@@ -88,6 +95,17 @@ ATTN_SOFTCAP = 4.0               # near the score scale, so a kernel that
 SERVE_LAYERS = 2
 SERVE_BATCH, SERVE_CHUNK, SERVE_PAGE, SERVE_GEN = 4, 64, 16, 16
 SERVE_PROMPTS = np.linspace(32, 256, 8).astype(int)
+
+# MLA phases: deepseek-v2-236b widths, depth cut to one block of each kind
+MLA_ARCH, MLA_LAYERS = "deepseek-v2-236b", 2
+MLA_HEADS, MLA_LATENT, MLA_ROPE = 128, 512, 64
+MLA_SCALE = (128 + 64) ** -0.5      # (nope + rope head dims) ** -0.5
+SMALL_MLA = dict(   # the reduced deepseek of the JAX package's tests
+    num_layers=3, prefix_kinds=("mla_dense",), scan_repeats=2, d_model=64,
+    num_heads=4, num_kv_heads=4, head_dim=16, d_ff=128, moe_d_ff=32,
+    num_experts=4, num_shared_experts=1, top_k=2, kv_lora_rank=16,
+    q_lora_rank=24, rope_head_dim=8, nope_head_dim=16, v_head_dim=16,
+    capacity_factor=8.0)
 
 # ReActNet-A phase: the full model at its published shapes
 RN_BATCH = 32
@@ -190,8 +208,8 @@ def phase_huffman(engine, expect) -> dict:
             "shape": f"T={t} W={w} S={s} C={c}"}
 
 
-def _attn_inputs(dev, qn, q_lens, lengths, pps, gen):
-    s_n, h, kh, d, page = SERVE_BATCH, 32, 8, 128, SERVE_PAGE
+def _attn_inputs(dev, qn, q_lens, lengths, pps, gen, h=32, kh=8, d=128):
+    s_n, page = SERVE_BATCH, SERVE_PAGE
     n_pages = s_n * pps + 1
     k = torch.randn((n_pages, page, kh, d), generator=gen, device=dev)
     v = torch.randn((n_pages, page, kh, d), generator=gen, device=dev)
@@ -207,14 +225,21 @@ def _attn_inputs(dev, qn, q_lens, lengths, pps, gen):
     return q, k, v, table, as_i32(lengths), as_i32(q_lens)
 
 
-def _attn_bytes_ops(q, k, table, lengths, q_lens, window, codec=False):
+def _attn_bytes_ops(q, k, table, lengths, q_lens, window, codec=False,
+                    q2=None, k2=None, shared_kv=False):
     """Bytes every input read once + output written once, and f32 ops,
     for what these inputs need (positions each slot's tokens can see).
     ``codec``: ``k`` holds int8 codes, each visible (position, head, dim)
     element decoded once (one multiply), plus one f32 scale per visible
-    position in each of the K and V scale pools."""
+    position in each scale pool.  MLA: ``q2``/``k2`` add the second score
+    operand (its bytes, its scale pool, 2 ops per element of ``q2 . k2``),
+    and ``shared_kv`` counts the one latent pool that is both K and V
+    once."""
     _, qn, h, d = q.shape
     kh = k.shape[2]
+    d2 = 0 if k2 is None else k2.shape[-1]
+    width = (1 if shared_kv else 2) * d + d2    # pool elements a position
+    n_scales = (1 if shared_kv else 2) + (k2 is not None)
     kv_pos, pairs = 0, 0
     for ln, ql in zip(lengths.tolist(), q_lens.tolist()):
         if not ql:
@@ -225,17 +250,18 @@ def _attn_bytes_ops(q, k, table, lengths, q_lens, window, codec=False):
         for i in range(ql):
             qp = first + i
             pairs += qp + 1 - (max(0, qp - window + 1) if window else 0)
-    nbytes = (q.numel() * 4 + kv_pos * kh * 2 * d * k.element_size()
+    nbytes = (q.numel() * 4 + kv_pos * kh * width * k.element_size()
               + table.numel() * 4 + 2 * lengths.numel() * 4
-              + q.numel() * 4)
-    ops = pairs * h * (4 * d + 6)     # q.k, p.v, online-softmax update
+              + q.numel() * 4 + (0 if q2 is None else q2.numel() * 4))
+    # q.k, q2.k2, p.v, online-softmax update
+    ops = pairs * h * (4 * d + 2 * d2 + 6)
     if codec:
-        nbytes += kv_pos * 2 * 4 + kv_codec.LEVELS * 4
-        ops += kv_pos * kh * 2 * d
+        nbytes += kv_pos * n_scales * 4 + kv_codec.LEVELS * 4
+        ops += kv_pos * kh * width
     return nbytes, ops
 
 
-def _sdpa_ms(q, k, v, table, lengths, q_lens) -> float:
+def _sdpa_ms(q, k, v, table, lengths, q_lens, scale=1.0) -> float:
     """One torch SDPA call over the gathered per-slot view (yardstick
     only; the port never calls it)."""
     import torch.nn.functional as F
@@ -244,14 +270,14 @@ def _sdpa_ms(q, k, v, table, lengths, q_lens) -> float:
     span = table.shape[1] * k.shape[1]
     kg = k[table.long()].reshape(s_n, span, kh, d).repeat_interleave(
         h // kh, dim=2).transpose(1, 2)
-    vg = v[table.long()].reshape(s_n, span, kh, d).repeat_interleave(
+    vg = v[table.long()].reshape(s_n, span, kh, -1).repeat_interleave(
         h // kh, dim=2).transpose(1, 2)
     qg = q.to(k.dtype).transpose(1, 2)
     qpos = (lengths - q_lens)[:, None] + torch.arange(qn, device=q.device)
     mask = torch.arange(span, device=q.device)[None, None] <= qpos[..., None]
     mask = mask[:, None]
     return time_ms(lambda: F.scaled_dot_product_attention(
-        qg, kg, vg, attn_mask=mask, scale=1.0), iters=50)
+        qg, kg, vg, attn_mask=mask, scale=scale), iters=50)
 
 
 def _codec_attention(q, k, v, table, ln, ql, qn, dev) -> tuple:
@@ -417,35 +443,53 @@ def _serve(engine, prompts, kv_codec="none"):
     return {r.rid: tuple(r.generated) for r in done}, wall, sched
 
 
-def phase_serve(engine) -> dict:
+def _reset_counts() -> None:
+    huffman_decode.launches = 0
+    paged_mixed_attention.launches = paged_mixed_attention.mla_launches = 0
+
+
+def _attn_launches(mla: bool) -> int:
+    """Attention launches since ``_reset_counts``: with the MLA operand
+    on every one for an MLA model, on none for a GQA one."""
+    n, n_mla = paged_mixed_attention.launches, \
+        paged_mixed_attention.mla_launches
+    if n_mla != (n if mla else 0):
+        fail(f"{n} attention launches, {n_mla} of them with the MLA "
+             f"operand, serving {'an MLA' if mla else 'a GQA'} model")
+    return n
+
+
+def phase_serve(engine, mla=False) -> dict:
+    name = "paged_mixed_attention_mla" if mla else "paged_mixed_attention"
+    label = "serve mla" if mla else "serve"
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, engine.cfg.vocab_size, n)
                for n in SERVE_PROMPTS]
     engine.metrics = ServeMetrics()
-    huffman_decode.launches = 0
-    paged_mixed_attention.launches = 0
+    _reset_counts()
     toks1, wall1, _ = _serve(engine, prompts)
     launches = {"huffman_decode": huffman_decode.launches,
-                "paged_mixed_attention": paged_mixed_attention.launches}
+                name: _attn_launches(mla)}
     m1, st1 = engine.metrics, engine.cache.stats()
     if not all(launches.values()):
-        fail(f"the serve run did not launch every kernel: {launches}")
+        fail(f"the {label} run did not launch every kernel: {launches}")
     engine.metrics = ServeMetrics()
     toks2, wall2, _ = _serve(engine, prompts)
     m2 = engine.metrics
     if toks1 != toks2:
-        fail("a second run of the same requests gave other tokens")
+        fail(f"a second {label} run of the same requests gave other tokens")
     st = engine.cache.stats()
-    print(f"serve: {len(prompts)} requests, prompts {SERVE_PROMPTS.tolist()}"
-          f", gen {SERVE_GEN}, batch {SERVE_BATCH}, chunk {SERVE_CHUNK}, "
-          f"page {SERVE_PAGE}, cuda_paged; launches {launches}")
-    print(f"serve run 1 (cold tile cache): {wall1:.2f}s, "
+    print(f"{label}: {len(prompts)} requests, prompts "
+          f"{SERVE_PROMPTS.tolist()}, gen {SERVE_GEN}, batch {SERVE_BATCH}, "
+          f"chunk {SERVE_CHUNK}, page {SERVE_PAGE}, cuda_paged; launches "
+          f"{launches}")
+    print(f"{label} run 1 (cold tile cache): {wall1:.2f}s, "
           f"{m1.ms_per_token():.2f} ms/step, {m1.tokens_per_s():.1f} tok/s, "
           f"hit rate {st1['hit_rate'] * 100:.1f}% ({st1['misses']} misses)")
-    print(f"serve run 2 (warm): {wall2:.2f}s, {m2.ms_per_token():.2f} "
+    print(f"{label} run 2 (warm): {wall2:.2f}s, {m2.ms_per_token():.2f} "
           f"ms/step, {m2.tokens_per_s():.1f} tok/s; cumulative tile-cache "
           f"hit rate {st['hit_rate'] * 100:.1f}%; tokens identical to run 1")
-    print(f"serve kv gather bytes: {m2.kv_gather_bytes} decode, "
+    print(f"{label} kv gather bytes: {m2.kv_gather_bytes} decode, "
           f"{m2.kv_prefill_gather_bytes} prefill; sample {toks1[0][:8]}")
     if m2.kv_gather_bytes or m2.kv_prefill_gather_bytes:
         fail("the mixed-step path copied KV")
@@ -453,25 +497,26 @@ def phase_serve(engine) -> dict:
     return launches, prompts, m2
 
 
-def phase_serve_codec(engine, prompts, fp_launches, fp_warm) -> dict:
+def phase_serve_codec(engine, prompts, fp_launches, fp_warm,
+                      mla=False) -> dict:
     """The same 8 requests on the same registered engine with
     ``kv_codec="cluster"``: int8 code pools + f32 scale pools, decoded
     inside the paged-attention kernel.  Two runs, identical tokens; the
     kernel launched once per layer per tick, as often as in the fp run
     (the schedule does not depend on the values); no KV copied."""
+    fp_name = "paged_mixed_attention_mla" if mla else "paged_mixed_attention"
+    name = f"{fp_name}_codec"
+    label = "serve mla codec" if mla else "serve codec"
     engine.metrics = ServeMetrics()
-    huffman_decode.launches = 0
-    paged_mixed_attention.launches = 0
+    _reset_counts()
     toks1, wall1, sched = _serve(engine, prompts, kv_codec="cluster")
-    launches = {"paged_mixed_attention_codec":
-                paged_mixed_attention.launches,
+    launches = {name: _attn_launches(mla),
                 "huffman_decode": huffman_decode.launches}
     m1 = engine.metrics
-    want = fp_launches["paged_mixed_attention"]
-    if launches["paged_mixed_attention_codec"] != want:
-        fail(f"codec serve launched the attention kernel "
-             f"{launches['paged_mixed_attention_codec']} times, the fp "
-             f"serve {want} (same schedule expected)")
+    want = fp_launches[fp_name]
+    if launches[name] != want:
+        fail(f"{label} launched the attention kernel {launches[name]} "
+             f"times, the fp serve {want} (same schedule expected)")
     pool = sched._pool
     kinds = ({c.dtype for c in tree_leaves(pool.kcache)},
              {x.dtype for x in tree_leaves(pool.kscales)})
@@ -481,16 +526,16 @@ def phase_serve_codec(engine, prompts, fp_launches, fp_warm) -> dict:
     toks2, wall2, sched2 = _serve(engine, prompts, kv_codec="cluster")
     m2 = engine.metrics
     if toks1 != toks2:
-        fail("a second codec run of the same requests gave other tokens")
+        fail(f"a second {label} run of the same requests gave other tokens")
     if m1.kv_gather_bytes or m1.kv_prefill_gather_bytes or \
             m2.kv_gather_bytes or m2.kv_prefill_gather_bytes:
         fail("the codec mixed-step path copied KV")
-    print(f"serve codec: same requests, kv_codec=cluster; launches "
+    print(f"{label}: same requests, kv_codec=cluster; launches "
           f"{launches} (fp run: {want}); pools "
           f"{[tuple(c.shape) for c in tree_leaves(pool.kcache)]} int8 + "
           f"scales {[tuple(x.shape) for x in tree_leaves(pool.kscales)]} "
           f"f32")
-    print(f"serve codec run 1: {wall1:.2f}s, {m1.ms_per_token():.2f} "
+    print(f"{label} run 1: {wall1:.2f}s, {m1.ms_per_token():.2f} "
           f"ms/step, {m1.tokens_per_s():.1f} tok/s; run 2: {wall2:.2f}s, "
           f"{m2.ms_per_token():.2f} ms/step, {m2.tokens_per_s():.1f} tok/s; "
           f"fp run 2 (warm): {fp_warm.ms_per_token():.2f} ms/step, "
@@ -498,7 +543,7 @@ def phase_serve_codec(engine, prompts, fp_launches, fp_warm) -> dict:
           f"the two codec runs; sample {toks1[0][:8]}")
     t0 = time.monotonic()
     codec_report(sched2._pool, m2)
-    print(f"serve codec: at-rest report over "
+    print(f"{label}: at-rest report over "
           f"{sum(c.numel() for c in tree_leaves(pool.kcache))} resident "
           f"codes took {time.monotonic() - t0:.1f}s on the host")
     profile_serve(engine, prompts, kv_codec="cluster")
@@ -543,16 +588,16 @@ def profile_serve(engine, prompts, kv_codec="none") -> None:
         print(f"  {ms:9.3f} ms  x{n:<5d} {key[:90]}")
 
 
-def phase_small_reference(dev) -> None:
-    """A small model served on the card gives the CPU's tokens.  Its MLP
-    weights are +-1 (unit scale), so every binarised product is an exact
-    integer on either device; with other scales, a unit whose +-alpha
-    terms cancel exactly is rounding noise whose sign follows the BLAS's
-    summation order (as it does in the JAX reference)."""
-    cfg = tiny_config("minitron-8b")
-    params = init_params(cfg, torch.Generator().manual_seed(3), "cpu")
-    for name, w in params["scan"]["b0"]["mlp"].items():
-        params["scan"]["b0"]["mlp"][name] = torch.where(w >= 0, 1.0, -1.0)
+def phase_small_reference(dev, cfg, label) -> None:
+    """A small model served on the card gives the CPU's tokens.  Its dense
+    MLP weights are +-1 (unit scale), so every binarised product is an
+    exact integer on either device; with other scales, a unit whose
+    +-alpha terms cancel exactly is rounding noise whose sign follows the
+    BLAS's summation order (as it does in the JAX reference)."""
+    params = tree_map_with_path(
+        lambda path, w: torch.where(w >= 0, 1.0, -1.0)
+        if "mlp" in path.split("/") else w,
+        init_params(cfg, torch.Generator().manual_seed(3), "cpu"))
     rng = np.random.default_rng(3)
     reqs = [(rng.integers(0, cfg.vocab_size, n), g)
             for n, g in ((5, 7), (12, 2), (20, 5), (6, 9), (3, 1), (9, 4))]
@@ -568,11 +613,21 @@ def phase_small_reference(dev) -> None:
             out[str(device)] = {r.rid: tuple(r.generated)
                                 for r in sched.run()}
         if out["cpu"] != out[str(dev)]:
-            fail(f"tiny model (kv_codec={codec}) on the card gave other "
+            fail(f"{label} (kv_codec={codec}) on the card gave other "
                  f"tokens than on the CPU: {out}")
-        print(f"small reference: tiny minitron ({cfg.d_model} wide, f32), "
+        print(f"small reference: {label} ({cfg.d_model} wide, f32), "
               f"kv_codec={codec}, serves {len(reqs)} requests to identical "
               f"tokens on cuda and cpu")
+
+
+def phase_small_mla_reference(dev) -> None:
+    """The small-model check on deepseek-v2 at the reduced widths the
+    JAX package's tests use: MLA attention through the kernel's second
+    operand, shared + routed experts (no drops at capacity factor 8)."""
+    phase_small_reference(
+        dev, get_config(MLA_ARCH).scaled(dtype="float32", vocab_size=128,
+                                         **SMALL_MLA),
+        "reduced deepseek-v2")
 
 
 def phase_fused_operands(engine, dev) -> None:
@@ -600,6 +655,213 @@ def phase_fused_operands(engine, dev) -> None:
           f" bits, words {tuple(words.shape)}) built in {host_s:.1f}s on the "
           f"host; compressed_binary_matmul of a (16, {meta['k_true']}) "
           f"activation == sign(x) @ materialised signs")
+
+
+def _mla_inputs(dev, qn, q_lens, lengths, pps, gen):
+    """The MLA kernel call at deepseek-v2's serving widths: one latent KV
+    head whose (n_pages, 16, 1, 512) bf16 pool is both key and value, a
+    (n_pages, 16, 1, 64) rope pool, q (S, Q, 128, 512) and q2
+    (S, Q, 128, 64) in f32, ragged like the GQA case."""
+    q, c, _, table, ln, ql = _attn_inputs(dev, qn, q_lens, lengths, pps,
+                                          gen, h=MLA_HEADS, kh=1,
+                                          d=MLA_LATENT)
+    pe = torch.randn((*c.shape[:3], MLA_ROPE), generator=gen,
+                     device=dev).to(torch.bfloat16)
+    q2 = torch.randn((*q.shape[:3], MLA_ROPE), generator=gen, device=dev)
+    return q * MLA_LATENT ** 0.5, c, q2, pe, table, ln, ql
+
+
+def _mla_case(q, c, q2, pe, table, ln, ql, qn, dev) -> tuple:
+    """One serve shape of the MLA kernel: fp (bf16 pools) against the
+    plain version over window {0, 100} x softcap {0, 4}, poisoned page 0
+    inert; the codec kernel (``gather`` and ``onehot``) bit-identical to
+    the fp kernel on the decoded f32 pools, within ATTN_TOL of its plain
+    version, poisoned page-0 codes, scales and k2 rows inert -> (worst fp
+    error, worst codec error, timings)."""
+    (cc, cs), (pc, ps) = (kv_codec.encode(x, (-2, -1)) for x in (c, pe))
+    cb = kv_codec.codebook(dev)
+    cd, pd = decode_pool(cc, cs, cb), decode_pool(pc, ps, cb)
+    rows = torch.arange(qn, device=dev)[None] < ql[:, None]
+    worst, cworst = 0.0, 0.0
+    for window in (0, 100):
+        for cap in (0.0, ATTN_SOFTCAP):
+            kw = dict(window=window, softcap_val=cap, scale=MLA_SCALE,
+                      page_size=SERVE_PAGE)
+            got = paged_mixed_attention(q, c, c, table, ln, ql, q2, pe, **kw)
+            want = paged_mixed_attention_plain(q, c, c, table, ln, ql, q2=q2,
+                                               k2_pages=pe, **kw)
+            cp, pp = c.clone(), pe.clone()
+            cp[0], pp[0] = 3e4, -3e4
+            poisoned = paged_mixed_attention(q, cp, cp, table, ln, ql, q2,
+                                             pp, **kw)
+            fp = paged_mixed_attention(q, cd, cd, table, ln, ql, q2, pd,
+                                       **kw)
+            cwant = paged_mixed_attention_plain(
+                q, cc, cc, table, ln, ql, cs, cs, cb, q2=q2, k2_pages=pc,
+                k2_scales=ps, **kw)
+            codec = {d: paged_mixed_attention(q, cc, cc, table, ln, ql, q2,
+                                              pc, cs, cs, ps, cb, dequant=d,
+                                              **kw)
+                     for d in ("gather", "onehot")}
+            ccp, pcp, csp, psp = cc.clone(), pc.clone(), cs.clone(), ps.clone()
+            ccp[0], pcp[0], csp[0], psp[0] = 127, -127, 1e6, 1e6
+            cpoisoned = paged_mixed_attention(q, ccp, ccp, table, ln, ql, q2,
+                                              pcp, csp, csp, psp, cb, **kw)
+            torch.cuda.synchronize()
+            err = float((got - want).abs()[rows].max())
+            cerr = float((codec["gather"] - cwant).abs()[rows].max())
+            worst, cworst = max(worst, err), max(cworst, cerr)
+            where = f"MLA Q={qn} window={window} softcap={cap}"
+            if not torch.isfinite(got).all() or err > ATTN_TOL:
+                fail(f"paged attention {where}: max err {err} > {ATTN_TOL}")
+            if not torch.equal(got, poisoned):
+                fail(f"poisoned page 0 changed the {where} output")
+            if cerr > ATTN_TOL:
+                fail(f"codec paged attention {where}: max err {cerr} > "
+                     f"{ATTN_TOL}")
+            for d, out in codec.items():
+                if not torch.equal(out, fp):
+                    fail(f"codec kernel ({d}) {where} differs from the fp "
+                         f"kernel on the decoded f32 pools at "
+                         f"{int((out != fp).sum())} outputs")
+            if not torch.equal(codec["gather"], cpoisoned):
+                fail(f"poisoned page-0 codes changed the codec {where} "
+                     f"output")
+    kw = dict(scale=MLA_SCALE, page_size=SERVE_PAGE)
+    ckw = dict(k2_scales=ps, codebook=cb, **kw)
+    ms = time_ms(lambda: paged_mixed_attention(q, c, c, table, ln, ql, q2,
+                                               pe, **kw), iters=20)
+    plain_ms = time_ms(lambda: paged_mixed_attention_plain(
+        q, c, c, table, ln, ql, q2=q2, k2_pages=pe, **kw), iters=5)
+    cms = time_ms(lambda: paged_mixed_attention(
+        q, cc, cc, table, ln, ql, q2, pc, cs, cs, **ckw), iters=20)
+    onehot_ms = time_ms(lambda: paged_mixed_attention(
+        q, cc, cc, table, ln, ql, q2, pc, cs, cs, dequant="onehot", **ckw),
+        iters=2, warmup=1)
+    cplain_ms = time_ms(lambda: paged_mixed_attention_plain(
+        q, cc, cc, table, ln, ql, cs, cs, cb, q2=q2, k2_pages=pc,
+        k2_scales=ps, **kw), iters=5)
+    decode_ms = time_ms(lambda: (decode_pool(cc, cs, cb),
+                                 decode_pool(pc, ps, cb)), iters=20)
+    # the same function in one SDPA call: q || q2 against c || pe (D =
+    # 576), values c, on the gathered view
+    lib_ms = _sdpa_ms(torch.cat([q, q2], -1), torch.cat([c, pe], -1), c,
+                      table, ln, ql, scale=MLA_SCALE)
+    clib_ms = _sdpa_ms(torch.cat([q, q2], -1), torch.cat([cd, pd], -1), cd,
+                       table, ln, ql, scale=MLA_SCALE)
+    bms, by = bound_ms(*_attn_bytes_ops(q, c, table, ln, ql, 0, q2=q2,
+                                        k2=pe, shared_kv=True))
+    cbytes, cops = _attn_bytes_ops(q, cc, table, ln, ql, 0, codec=True,
+                                   q2=q2, k2=pc, shared_kv=True)
+    cbms, cby = bound_ms(cbytes, cops)
+    print(f"  MLA codec Q={qn} bounds: bytes "
+          f"{cbytes / HBM_BYTES_PER_S * 1e3:.4f} ms ({cbytes} B), operations "
+          f"{cops / F32_OPS_PER_S * 1e3:.4f} ms ({cops} f32 ops)")
+    return worst, cworst, ((ms, plain_ms, lib_ms, bms, by),
+                           (cms, cplain_ms, clib_ms, cbms, cby, decode_ms,
+                            onehot_ms))
+
+
+def phase_attention_mla(dev) -> list:
+    """The MLA branch of the paged-attention kernel at deepseek-v2's
+    serving shapes, against its plain version, fp and codec."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    pps = -(-(int(SERVE_PROMPTS.max()) + SERVE_GEN) // SERVE_PAGE)
+    span = pps * SERVE_PAGE
+    cases = {64: ([64, 37, 0, 1], [span, 130, 0, 200]),
+             1: ([1, 1, 0, 1], [span, 17, 5, 100])}
+    worst, cworst, timing = 0.0, 0.0, {}
+    for qn, (q_lens, lengths) in cases.items():
+        args = _mla_inputs(dev, qn, q_lens, lengths, pps, gen)
+        err, cerr, timing[qn] = _mla_case(*args, qn, dev)
+        worst, cworst = max(worst, err), max(cworst, cerr)
+        (ms, plain_ms, lib_ms, bms, by), (cms, cplain, clib, cbms, cby, dec,
+                                          onehot) = timing[qn]
+        print(f"paged_mixed_attention MLA Q={qn} (S={SERVE_BATCH}, H="
+              f"{MLA_HEADS}, KH=1, D=Dv={MLA_LATENT}, D2={MLA_ROPE}, page "
+              f"{SERVE_PAGE}, {pps} pages/slot, bf16 pools, q_lens {q_lens}):"
+              f" kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa (D=576) "
+              f"{lib_ms:.4f} ms, bound {bms:.4f} ms ({by})")
+        print(f"paged_mixed_attention MLA codec Q={qn}: kernel {cms:.4f} ms "
+              f"(onehot {onehot:.4f} ms), plain {cplain:.4f} ms, sdpa on the "
+              f"decoded f32 view {clib:.4f} ms + decode {dec:.4f} ms, bound "
+              f"{cbms:.4f} ms ({cby})")
+    print(f"paged_mixed_attention MLA: max abs err {worst:.3e} (fp), "
+          f"{cworst:.3e} (codec) <= {ATTN_TOL} vs plain on rows i < q_lens "
+          f"over Q {{64, 1}} x window {{0, 100}} x softcap {{0, "
+          f"{ATTN_SOFTCAP}}}; codec gather and onehot bit-identical to the "
+          f"fp kernel on the decoded f32 pools; poisoned page 0 (latent, "
+          f"rope, codes, scales) inert")
+    shape = (f"S=4 Q=64 H={MLA_HEADS} KH=1 D=Dv={MLA_LATENT} D2={MLA_ROPE} "
+             f"page=16")
+    (ms, plain_ms, lib_ms, bms, by), _ = timing[64]
+    (q1, p1, l1, b1, _), (cq1, cp1, cl1, cb1, _, cd1, _) = timing[1]
+    fp = {"name": "paged_mixed_attention_mla", "route": "cuda",
+          "variant_of": "paged_mixed_attention",
+          "source": "src/repro_torch/csrc/paged_attention.cu",
+          "replaces": "src/repro/kernels/paged_attention.py:239",
+          "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+          "bound_ms": bms, "bound_by": by, "library_ms": lib_ms,
+          "shape": f"{shape} bf16 (library_ms: SDPA of q||q2 against "
+                   f"c||pe, D=576, values c, on the gathered view)",
+          "decode_q1": {"ms": q1, "plain_ms": p1, "library_ms": l1,
+                        "bound_ms": b1}}
+    _, (ms, plain_ms, lib_ms, bms, by, dec_ms, onehot_ms) = timing[64]
+    codec = {"name": "paged_mixed_attention_mla_codec", "route": "cuda",
+             "variant_of": "paged_mixed_attention",
+             "source": "src/repro_torch/csrc/paged_attention.cu",
+             "replaces": "src/repro/kernels/paged_attention.py:239",
+             "max_abs_err": cworst, "ms": ms, "plain_ms": plain_ms,
+             "bound_ms": bms, "bound_by": by, "library_ms": lib_ms,
+             "library_decode_ms": dec_ms, "onehot_ms": onehot_ms,
+             "shape": f"{shape} int8 codes + f32 scales (library_ms: SDPA "
+                      f"on the decoded f32 view, its decode in "
+                      f"library_decode_ms)",
+             "decode_q1": {"ms": cq1, "plain_ms": cp1, "library_ms": cl1,
+                           "bound_ms": cb1, "library_decode_ms": cd1}}
+    return [fp, codec]
+
+
+def phase_serve_mla(dev) -> dict:
+    """deepseek-v2-236b at its published widths, depth cut to its two
+    block kinds, served through ServeEngine + Scheduler on cuda_paged with
+    fp pools and then with the codec, on one engine -> the MLA kernel's
+    launches in each."""
+    cfg = cut_depth(get_config(MLA_ARCH), MLA_LAYERS)
+    print(f"reduced: {MLA_ARCH} depth {get_config(MLA_ARCH).num_layers} -> "
+          f"{cfg.num_layers} layers ({cfg.prefix_kinds[0]} + "
+          f"{cfg.scan_repeats} x {cfg.scan_pattern[0]}; widths as published:"
+          f" d_model {cfg.d_model}, {cfg.num_heads} heads, kv_lora_rank "
+          f"{cfg.kv_lora_rank}, q_lora_rank {cfg.q_lora_rank}, nope/rope/v "
+          f"{cfg.nope_head_dim}/{cfg.rope_head_dim}/{cfg.v_head_dim}, "
+          f"{cfg.num_experts} routed + {cfg.num_shared_experts} shared "
+          f"experts, top-{cfg.top_k}, moe_d_ff {cfg.moe_d_ff}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.dtype}, capacity "
+          f"factor {cfg.capacity_factor}); reason: "
+          f"{TOO_DEEP_FOR_ONE_CARD[MLA_ARCH]}; one block of each kind runs "
+          f"every module of the path")
+    t0 = time.monotonic()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dev)
+    torch.cuda.synchronize()
+    nbytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    print(f"{MLA_ARCH} params: {nbytes / 1e9:.2f} GB on the card, random "
+          f"from seed 0 in {time.monotonic() - t0:.2f}s")
+    t0 = time.monotonic()
+    engine = ServeEngine(cfg, params, device=dev)
+    del params
+    rep = engine.report
+    print(f"registration: {rep['layers']} MLP matrices "
+          f"({cfg.d_model}x{cfg.d_ff}, layer 0) in "
+          f"{time.monotonic() - t0:.1f}s, {rep['packed_bytes']} packed -> "
+          f"{rep['stream_bytes']} stream bytes ({rep['ratio_stream']:.3f}x)")
+    launches, prompts, fp_warm = phase_serve(engine, mla=True)
+    codec = phase_serve_codec(engine, prompts, launches, fp_warm, mla=True)
+    del engine
+    torch.cuda.empty_cache()
+    return {"paged_mixed_attention_mla": launches["paged_mixed_attention_mla"],
+            "paged_mixed_attention_mla_codec":
+                codec["paged_mixed_attention_mla_codec"]}
 
 
 def _rn_blocks(cfg=rn.CONFIG):
@@ -1011,7 +1273,10 @@ def main() -> None:
     phase_fused_operands(engine, dev)
     del engine
     torch.cuda.empty_cache()
-    phase_small_reference(dev)
+    kernels += phase_attention_mla(dev)
+    launches.update(phase_serve_mla(dev))
+    phase_small_mla_reference(dev)
+    phase_small_reference(dev, tiny_config("minitron-8b"), "tiny minitron")
     params, images, comp = setup_reactnet(dev)
     kernels += phase_binary_kernels(dev, comp)
     launches.update(phase_reactnet(dev, params, images, comp))

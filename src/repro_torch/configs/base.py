@@ -93,7 +93,7 @@ class ModelConfig:
 
 
 # the archs this port runs so far; the rest wait for later slices
-PORTED = ("minitron-8b", "reactnet")
+PORTED = ("minitron-8b", "deepseek-v2-236b", "reactnet")
 
 
 def get_config(name: str):

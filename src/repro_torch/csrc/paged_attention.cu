@@ -1,39 +1,50 @@
 // Ragged paged attention over slot page tables for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel repro/kernels/paged_attention.py
-// (paged_mixed_attention, _kernel and _dequant) for fp pools and for the
-// int8 KV-page codec.  Its plain PyTorch version is
+// (paged_mixed_attention, _kernel and _dequant) for fp pools, for the
+// int8 KV-page codec and for the MLA second score operand.  Its plain
+// PyTorch version is
 // repro_torch/kernels/paged_attention.py::paged_mixed_attention_plain.
 //
-// Inputs: q (S, Q, H, D) f32, already scaled; page pools k (n_pages, rows,
-// KH, D) and v (n_pages, rows, KH, Dv) in f32 or bf16, or int8 codebook
-// codes with f32 scale pools k_scales / v_scales (n_pages, rows) and a
-// (256,) f32 codebook; table (S, P) int32 physical page per logical page;
-// lengths (S,) valid positions including this block; q_lens (S,) real
-// query tokens per slot.  Query i < q_lens[s] of slot s sits at position
-// lengths[s] - q_lens[s] + i and attends keys at positions <= its own (and
-// > position - window when window > 0).  Logical page j covers positions
-// [j * logical, (j + 1) * logical); physical rows at or past `logical` are
-// layout padding and never read.  Page 0 is the dummy sink: no valid
-// position maps to it, so it is never read.  Rows i >= q_lens[s] write
-// zeros.  Output (S, Q, H, Dv) f32.
+// Inputs: q (S, Q, H, D) f32 (GQA callers fold the 1/sqrt(D) in); page
+// pools k (n_pages, rows, KH, D) and v (n_pages, rows, KH, Dv) in f32 or
+// bf16, or int8 codebook codes with f32 scale pools k_scales / v_scales
+// (n_pages, rows) and a (256,) f32 codebook; table (S, P) int32 physical
+// page per logical page; lengths (S,) valid positions including this
+// block; q_lens (S,) real query tokens per slot.  Query i < q_lens[s] of
+// slot s sits at position lengths[s] - q_lens[s] + i and attends keys at
+// positions <= its own (and > position - window when window > 0).
+// Logical page j covers positions [j * logical, (j + 1) * logical);
+// physical rows at or past `logical` are layout padding and never read.
+// Page 0 is the dummy sink: no valid position maps to it, so it is never
+// read.  Rows i >= q_lens[s] write zeros.  Output (S, Q, H, Dv) f32.
+//
+// MLA second score operand (optional): q2 (S, Q, H, D2) f32 and a pool
+// k2 (n_pages, rows, KH, D2) of k's type (with its own scale pool
+// k2_scales under the codec).  The score of a key is
+// (q . k + q2 . k2) * scale.  MLA's absorbed attention calls it with one
+// latent "KV head" (KH = 1, G = H), the latent pool as both k and v
+// (D = Dv = 512) and the rope part as k2 (D2 = 64).
 //
 // Launch: one warp per (slot, query token, head), four warps a block.
-// Lanes split D (lane l holds elements l, l + 32, ...: 4 a lane at D = 128,
-// each load of a key row coalesced across the warp); a butterfly shuffle
+// Lanes split D (lane l holds elements l, l + 32, ...; kPerLane of them, a
+// template parameter: 4 for D <= 128, 8 for 256, 16 for 512, so a narrow
+// head keeps a narrow register file) and D2 (two a lane, D2 <= 64); each
+// load of a key row is coalesced across the warp, and a butterfly shuffle
 // sums each score.  The warp walks only the positions its token may see,
 // through the slot's page table, with an online softmax in f32.
 //
 // Codec pools: each block stages the codebook in shared memory once; code
 // c of the row at (page, token) decodes to cb[c + 128] * scale[page, token]
-// (one scale serves every KV head of the token), one rounded f32 multiply,
-// and only then enters the dot and the value sum.  Every instruction after
-// the element load is shared with the fp pools (one template), and the
-// multiply-adds are pinned (__fmaf_rn), so the codec kernel gives the fp
-// kernel's bits on a pool decoded up front into f32.  "gather" reads the
-// codebook entry directly; "onehot" sums the 256 entries masked by
-// (index == code), as the reference's vector-unit lookup did: the same
-// bits, 256 times the work, kept as the bit-identity reference.
+// (one scale serves every KV head of the token; k2 has its own scale),
+// one rounded f32 multiply, and only then enters the dot and the value
+// sum.  Every instruction after the element load is shared with the fp
+// pools (one template), and the multiply-adds are pinned (__fmaf_rn), so
+// the codec kernel gives the fp kernel's bits on pools decoded up front
+// into f32, k2 included.  "gather" reads the codebook entry directly;
+// "onehot" sums the 256 entries masked by (index == code), as the
+// reference's vector-unit lookup did: the same bits, 256 times the work,
+// kept as the bit-identity reference.
 //
 // What bounds it on the card: the K/V bytes it reads for a decode block
 // (int8 codes halve them against bf16), the score and value products for a
@@ -42,8 +53,11 @@
 // absorb.  This first version keeps one key per loop step per warp, far
 // from either bound: the serial per-key steps of every warp (and, for
 // codec pools, the decode of each element in each of the G warps) set its
-// time.  Simple and right; tiling keys through shared memory and tensor
-// cores, and decoding each row once per GQA group, is later work.
+// time.  Under MLA that is extreme: the 128 warps of the one latent head
+// each read (and under the codec decode) the same 512-wide row twice, as
+// key and as value.  Simple and right; tiling keys through shared memory
+// and tensor cores, and decoding each row once per GQA group, is later
+// work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -52,8 +66,8 @@
 
 namespace {
 
-constexpr int kMaxPerLane = 8;       // D, Dv <= 256
 constexpr int kWarpsPerBlock = 4;
+constexpr int kPerLane2 = 2;         // D2 <= 64
 constexpr int kLevels = 256;         // codebook entries
 constexpr int kZeroCode = 128;       // codebook index of code 0
 
@@ -64,7 +78,7 @@ __device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
 }
 
-// Element e of a K or V row: the fp value, or the decoded codec value.
+// Element e of a K, V or K2 row: the fp value, or the decoded codec value.
 template <typename T, int kMode>
 __device__ __forceinline__ float element(const T* row, int e, float row_scale,
                                          const float* cb) {
@@ -83,77 +97,112 @@ __device__ __forceinline__ float element(const T* row, int e, float row_scale,
   }
 }
 
-template <typename T, int kMode>
-__global__ void paged_attention_kernel(
-    const float* __restrict__ q, const T* __restrict__ k_pages,
-    const T* __restrict__ v_pages, const float* __restrict__ k_scales,
-    const float* __restrict__ v_scales, const float* __restrict__ codebook,
-    const int32_t* __restrict__ table, const int32_t* __restrict__ lengths,
-    const int32_t* __restrict__ q_lens, float* __restrict__ out, int n_slots,
-    int qn, int h, int kh, int d, int dv, int page_rows, int logical,
-    int pages_per_slot, int window, float softcap, float scale) {
+struct Args {
+  const float* q;
+  const void* k_pages;
+  const void* v_pages;
+  const float* q2;
+  const void* k2_pages;
+  const float* k_scales;
+  const float* v_scales;
+  const float* k2_scales;
+  const float* codebook;
+  const int32_t* table;
+  const int32_t* lengths;
+  const int32_t* q_lens;
+  float* out;
+  int n_slots, qn, h, kh, d, dv, d2, page_rows, logical, pages_per_slot;
+  int window;
+  float softcap, scale;
+};
+
+template <typename T, int kMode, int kPerLane, bool kQ2>
+__global__ void paged_attention_kernel(const Args a) {
   __shared__ float cb[kMode == kFp ? 1 : kLevels];
   if constexpr (kMode != kFp) {
     for (int i = threadIdx.x; i < kLevels; i += blockDim.x)
-      cb[i] = codebook[i];
+      cb[i] = a.codebook[i];
     __syncthreads();
   }
   const int lane = threadIdx.x & 31;
   const long long warp =
       (long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (warp >= (long long)n_slots * qn * h) return;
-  const int head = (int)(warp % h);
-  const int qi = (int)((warp / h) % qn);
-  const int s = (int)(warp / ((long long)h * qn));
-  float* o = out + warp * dv;          // (S, Q, H, Dv): row (s, qi, head)
+  if (warp >= (long long)a.n_slots * a.qn * a.h) return;
+  const int head = (int)(warp % a.h);
+  const int qi = (int)((warp / a.h) % a.qn);
+  const int s = (int)(warp / ((long long)a.h * a.qn));
+  const int d = a.d, dv = a.dv, d2 = a.d2;
+  float* o = a.out + warp * dv;        // (S, Q, H, Dv): row (s, qi, head)
 
-  const int qlen = q_lens[s];
+  const int qlen = a.q_lens[s];
   if (qi >= qlen) {                    // ragged padding: finite zeros
     for (int j = lane; j < dv; j += 32) o[j] = 0.f;
     return;
   }
-  const int qpos = lengths[s] - qlen + qi;
-  const int kvh = head / (h / kh);
-  const float* qrow = q + warp * d;
-  float qv[kMaxPerLane], acc[kMaxPerLane];
+  const int qpos = a.lengths[s] - qlen + qi;
+  const int kvh = head / (a.h / a.kh);
+  const T* k_pages = (const T*)a.k_pages;
+  const T* v_pages = (const T*)a.v_pages;
+  const float* qrow = a.q + warp * d;
+  float qv[kPerLane], acc[kPerLane], q2v[kQ2 ? kPerLane2 : 1];
 #pragma unroll
-  for (int j = 0; j < kMaxPerLane; ++j) {
+  for (int j = 0; j < kPerLane; ++j) {
     const int e = lane + 32 * j;
     qv[j] = e < d ? qrow[e] : 0.f;
     acc[j] = 0.f;
   }
+  if constexpr (kQ2) {
+    const float* q2row = a.q2 + warp * d2;
+#pragma unroll
+    for (int j = 0; j < kPerLane2; ++j) {
+      const int e = lane + 32 * j;
+      q2v[j] = e < d2 ? q2row[e] : 0.f;
+    }
+  }
   float m = -INFINITY, l = 0.f;
-  const int32_t* trow = table + (long long)s * pages_per_slot;
-  const int lo = window > 0 ? max(0, qpos - window + 1) : 0;
+  const int32_t* trow = a.table + (long long)s * a.pages_per_slot;
+  const int lo = a.window > 0 ? max(0, qpos - a.window + 1) : 0;
   for (int p = lo; p <= qpos; ++p) {
     const long long prow =             // (page, token) of position p
-        (long long)trow[p / logical] * page_rows + p % logical;
-    const long long row = prow * kh + kvh;
+        (long long)trow[p / a.logical] * a.page_rows + p % a.logical;
+    const long long row = prow * a.kh + kvh;
     float ks = 1.f, vs = 1.f;
     if constexpr (kMode != kFp) {
-      ks = k_scales[prow];
-      vs = v_scales[prow];
+      ks = a.k_scales[prow];
+      vs = a.v_scales[prow];
     }
     const T* krow = k_pages + row * d;
     float part = 0.f;
 #pragma unroll
-    for (int j = 0; j < kMaxPerLane; ++j) {
+    for (int j = 0; j < kPerLane; ++j) {
       const int e = lane + 32 * j;
       if (e < d) part = __fmaf_rn(qv[j], element<T, kMode>(krow, e, ks, cb),
                                   part);
     }
+    if constexpr (kQ2) {               // the lane's q2 . k2 terms join its
+      float k2s = 1.f;                 // partial before the butterfly
+      if constexpr (kMode != kFp) k2s = a.k2_scales[prow];
+      const T* k2row = (const T*)a.k2_pages + row * d2;
+#pragma unroll
+      for (int j = 0; j < kPerLane2; ++j) {
+        const int e = lane + 32 * j;
+        if (e < d2)
+          part = __fmaf_rn(q2v[j], element<T, kMode>(k2row, e, k2s, cb),
+                           part);
+      }
+    }
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
       part += __shfl_xor_sync(0xffffffffu, part, off);
-    float sc = part * scale;
-    if (softcap != 0.f) sc = tanhf(sc / softcap) * softcap;
+    float sc = part * a.scale;
+    if (a.softcap != 0.f) sc = tanhf(sc / a.softcap) * a.softcap;
     const float m_new = fmaxf(m, sc);
     const float alpha = expf(m - m_new);   // 0 on the first key
     const float pe = expf(sc - m_new);
     l = __fmaf_rn(l, alpha, pe);
     const T* vrow = v_pages + row * dv;
 #pragma unroll
-    for (int j = 0; j < kMaxPerLane; ++j) {
+    for (int j = 0; j < kPerLane; ++j) {
       const int e = lane + 32 * j;
       if (e < dv)
         acc[j] = __fmaf_rn(pe, element<T, kMode>(vrow, e, vs, cb),
@@ -163,58 +212,79 @@ __global__ void paged_attention_kernel(
   }
   const float inv = 1.f / fmaxf(l, 1e-20f);
 #pragma unroll
-  for (int j = 0; j < kMaxPerLane; ++j) {
+  for (int j = 0; j < kPerLane; ++j) {
     const int e = lane + 32 * j;
     if (e < dv) o[e] = acc[j] * inv;
   }
 }
 
+template <typename T, int kMode, int kPerLane>
+void launch_q2(bool has_q2, unsigned blocks, cudaStream_t st, const Args& a) {
+  if (has_q2)
+    paged_attention_kernel<T, kMode, kPerLane, true>
+        <<<blocks, 32 * kWarpsPerBlock, 0, st>>>(a);
+  else
+    paged_attention_kernel<T, kMode, kPerLane, false>
+        <<<blocks, 32 * kWarpsPerBlock, 0, st>>>(a);
+}
+
 template <typename T, int kMode>
-void launch(unsigned blocks, cudaStream_t st, const void* q,
-            const void* k_pages, const void* v_pages, const void* k_scales,
-            const void* v_scales, const void* codebook, const void* table,
-            const void* lengths, const void* q_lens, void* out, int n_slots,
-            int qn, int h, int kh, int d, int dv, int page_rows, int logical,
-            int pages_per_slot, int window, float softcap, float scale) {
-  paged_attention_kernel<T, kMode><<<blocks, 32 * kWarpsPerBlock, 0, st>>>(
-      (const float*)q, (const T*)k_pages, (const T*)v_pages,
-      (const float*)k_scales, (const float*)v_scales,
-      (const float*)codebook, (const int32_t*)table,
-      (const int32_t*)lengths, (const int32_t*)q_lens, (float*)out, n_slots,
-      qn, h, kh, d, dv, page_rows, logical, pages_per_slot, window, softcap,
-      scale);
+int launch(int per_lane, bool has_q2, unsigned blocks, cudaStream_t st,
+           const Args& a) {
+  switch (per_lane) {
+    case 4: launch_q2<T, kMode, 4>(has_q2, blocks, st, a); break;
+    case 8: launch_q2<T, kMode, 8>(has_q2, blocks, st, a); break;
+    case 16: launch_q2<T, kMode, 16>(has_q2, blocks, st, a); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return 0;
 }
 
 }  // namespace
 
 // pools: 0 = float32, 1 = bfloat16, 2 = int8 codes decoded by "gather",
-// 3 = int8 codes decoded by "onehot" (k_scales, v_scales and codebook are
-// read only for 2 and 3)
+// 3 = int8 codes decoded by "onehot" (k_scales, v_scales, k2_scales and
+// codebook are read only for 2 and 3); per_lane: elements of D and Dv a
+// lane holds (4, 8 or 16; D, Dv <= 32 * per_lane); q2 == NULL: no second
+// score operand (k2_pages, k2_scales and d2 unread), else d2 <= 64
 extern "C" int paged_attention_launch(
     const void* q, const void* k_pages, const void* v_pages, int pools,
-    const void* k_scales, const void* v_scales, const void* codebook,
+    const void* q2, const void* k2_pages, const void* k_scales,
+    const void* v_scales, const void* k2_scales, const void* codebook,
     const void* table, const void* lengths, const void* q_lens, void* out,
-    int n_slots, int qn, int h, int kh, int d, int dv, int page_rows,
-    int logical, int pages_per_slot, int window, float softcap, float scale,
-    void* stream) {
+    int n_slots, int qn, int h, int kh, int d, int dv, int d2, int per_lane,
+    int page_rows, int logical, int pages_per_slot, int window,
+    float softcap, float scale, void* stream) {
   const long long warps = (long long)n_slots * qn * h;
   if (warps == 0) return (int)cudaGetLastError();
+  const bool has_q2 = q2 != nullptr;
+  if ((d > dv ? d : dv) > 32 * per_lane || (has_q2 && d2 > 32 * kPerLane2))
+    return (int)cudaErrorInvalidValue;
   const unsigned blocks =
       (unsigned)((warps + kWarpsPerBlock - 1) / kWarpsPerBlock);
   cudaStream_t st = (cudaStream_t)stream;
-#define PAGED_ATTENTION_ARGS                                                 \
-  blocks, st, q, k_pages, v_pages, k_scales, v_scales, codebook, table,     \
-      lengths, q_lens, out, n_slots, qn, h, kh, d, dv, page_rows, logical,  \
-      pages_per_slot, window, softcap, scale
+  const Args a{(const float*)q, k_pages, v_pages, (const float*)q2,
+               k2_pages, (const float*)k_scales, (const float*)v_scales,
+               (const float*)k2_scales, (const float*)codebook,
+               (const int32_t*)table, (const int32_t*)lengths,
+               (const int32_t*)q_lens, (float*)out, n_slots, qn, h, kh, d,
+               dv, d2, page_rows, logical, pages_per_slot, window, softcap,
+               scale};
+  int code;
   switch (pools) {
-    case 0: launch<float, kFp>(PAGED_ATTENTION_ARGS); break;
-    case 1: launch<__nv_bfloat16, kFp>(PAGED_ATTENTION_ARGS); break;
-    case 2: launch<int8_t, kGather>(PAGED_ATTENTION_ARGS); break;
-    case 3: launch<int8_t, kOneHot>(PAGED_ATTENTION_ARGS); break;
+    case 0: code = launch<float, kFp>(per_lane, has_q2, blocks, st, a); break;
+    case 1:
+      code = launch<__nv_bfloat16, kFp>(per_lane, has_q2, blocks, st, a);
+      break;
+    case 2:
+      code = launch<int8_t, kGather>(per_lane, has_q2, blocks, st, a);
+      break;
+    case 3:
+      code = launch<int8_t, kOneHot>(per_lane, has_q2, blocks, st, a);
+      break;
     default: return (int)cudaErrorInvalidValue;
   }
-#undef PAGED_ATTENTION_ARGS
-  return (int)cudaGetLastError();
+  return code ? code : (int)cudaGetLastError();
 }
 
 extern "C" const char* paged_attention_error_string(int code) {

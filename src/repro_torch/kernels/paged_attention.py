@@ -1,14 +1,14 @@
 """Ragged paged attention: CUDA kernel + plain PyTorch version.
 
 Replaces the Pallas TPU kernel ``repro/kernels/paged_attention.py::
-paged_mixed_attention`` (``_kernel``, ``_dequant``) for fp page pools and
-for the int8 KV-page codec (``kv_codec="cluster"``).  The kernel is
-``csrc/paged_attention.cu``: one warp per (slot, query token, head), lanes
-splitting the head dim, an online softmax over the positions the token
-may see, walked through the slot's page table; codec pools are decoded
-in-kernel from a codebook staged in shared memory.  The source note says
-what bounds it on the card and how this first version stands against
-that.
+paged_mixed_attention`` (``_kernel``, ``_dequant``) for fp page pools, for
+the int8 KV-page codec (``kv_codec="cluster"``) and for the MLA second
+score operand.  The kernel is ``csrc/paged_attention.cu``: one warp per
+(slot, query token, head), lanes splitting the head dim, an online softmax
+over the positions the token may see, walked through the slot's page
+table; codec pools are decoded in-kernel from a codebook staged in shared
+memory.  The source note says what bounds it on the card and how this
+first version stands against that.
 
 Layout contract (shared with ``runtime.scheduler.SlotPool``), as in the
 reference: slot ``s`` contributes ``q_lens[s]`` tokens at positions
@@ -17,15 +17,18 @@ a valid position; ``page_size`` is the logical page length and physical
 rows at or past it are padding; rows ``i >= q_lens[s]`` are padding (both
 versions write zeros there, the reference wrote finite garbage).
 
-Codec pools (``k_scales`` given): ``k_pages``/``v_pages`` hold int8
-codebook codes and ``k_scales``/``v_scales`` (n_pages, rows) one f32
-scale per (page, token), shared by every KV head; each element decodes to
-``codebook[code + 128] * scale`` before it is used.  The result equals the
-fp path on the pool decoded up front into f32, bit for bit, on either
-device.
+Codec pools (``k_scales`` given): ``k_pages``/``v_pages`` (and
+``k2_pages``) hold int8 codebook codes and ``k_scales``/``v_scales`` (and
+``k2_scales``) (n_pages, rows) one f32 scale per (page, token), shared by
+every KV head; each element decodes to ``codebook[code + 128] * scale``
+before it is used.  The result equals the fp path on the pools decoded up
+front into f32, bit for bit, on either device.
 
-Not ported yet (they raise): the MLA second score operand
-``q2``/``k2_pages`` (and its ``k2_scales``), and ``pages_per_step > 1``.
+MLA (``q2``/``k2_pages`` given): scores are ``(q . k + q2 . k2) * scale``;
+MLA's absorbed attention passes one latent KV head whose pool is both
+``k_pages`` and ``v_pages`` (``models.attention.mla_apply``).
+
+Not ported (it raises): ``pages_per_step > 1``, a TPU launch knob.
 """
 
 from __future__ import annotations
@@ -40,15 +43,40 @@ NEG_INF = -1e30
 # the kernel's pool codes: fp pools by dtype, codec pools by dequant mode
 _POOL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _DEQUANT = {"gather": 2, "onehot": 3}
-_MAX_HEAD_DIM = 256
+# elements of D and Dv one lane of the kernel holds (a template parameter)
+_PER_LANE = (4, 8, 16)
+_MAX_HEAD_DIM = 32 * _PER_LANE[-1]
+_MAX_Q2_DIM = 64                     # two elements a lane
 
 
-def _check_unported(q2, k2_pages, k2_scales, pages_per_step) -> None:
-    if q2 is not None or k2_pages is not None or k2_scales is not None:
-        raise NotImplementedError("the MLA second score operand (q2, "
-                                  "k2_pages, k2_scales) is not ported yet")
-    if pages_per_step != 1:
-        raise NotImplementedError("pages_per_step > 1 is not ported yet")
+def _check_mla(q, k_pages, q2, k2_pages, k2_scales, codec: bool) -> bool:
+    """True when the MLA second score operand is given; raise on a
+    half-given or mistyped one."""
+    if q2 is None and k2_pages is None:
+        if k2_scales is not None:
+            raise ValueError("k2_scales without q2 and k2_pages")
+        return False
+    if q2 is None or k2_pages is None:
+        raise ValueError("the MLA second score operand needs both q2 and "
+                         "k2_pages")
+    if k2_pages.dtype != k_pages.dtype:
+        raise ValueError(f"k2_pages ({k2_pages.dtype}) must have k_pages' "
+                         f"dtype ({k_pages.dtype})")
+    if (k2_scales is not None) != codec:
+        raise ValueError("k2_scales comes with codec pools (k_scales, "
+                         "v_scales, codebook) and only with them")
+    s_n, qn, h, _ = q.shape
+    if q2.shape[:3] != (s_n, qn, h) or \
+            k2_pages.shape[:3] != k_pages.shape[:3] or \
+            q2.shape[-1] != k2_pages.shape[-1]:
+        raise ValueError(f"q2 {tuple(q2.shape)} / k2_pages "
+                         f"{tuple(k2_pages.shape)} do not fit q "
+                         f"{tuple(q.shape)} / k_pages "
+                         f"{tuple(k_pages.shape)}")
+    if codec and k2_scales.shape != k2_pages.shape[:2]:
+        raise ValueError(f"k2_scales {tuple(k2_scales.shape)} must be "
+                         f"(n_pages, rows) = {tuple(k2_pages.shape[:2])}")
+    return True
 
 
 def _check_codec(k_pages, v_pages, k_scales, v_scales, codebook,
@@ -86,16 +114,20 @@ def decode_pool(pages: torch.Tensor, scales: torch.Tensor,
 
 def paged_mixed_attention_plain(q, k_pages, v_pages, table, lengths, q_lens,
                                 k_scales=None, v_scales=None, codebook=None,
-                                *, window: int = 0, softcap_val: float = 0.0,
+                                *, q2=None, k2_pages=None, k2_scales=None,
+                                window: int = 0, softcap_val: float = 0.0,
                                 scale: float = 1.0,
                                 page_size: int = 0) -> torch.Tensor:
     """Plain PyTorch version: decode codec pools up front (when
     ``k_scales`` is given), gather each slot's pages into a contiguous
-    view, score every (query, key) pair with the causal/window/ragged
-    masks, softmax, and weight the values.  (S, Q, H, Dv) float32."""
+    view, score every (query, key) pair (``q . k``, plus ``q2 . k2`` for
+    MLA) with the causal/window/ragged masks, softmax, and weight the
+    values.  (S, Q, H, Dv) float32."""
     if k_scales is not None:
         k_pages = decode_pool(k_pages, k_scales, codebook)
         v_pages = decode_pool(v_pages, v_scales, codebook)
+        if k2_pages is not None:
+            k2_pages = decode_pool(k2_pages, k2_scales, codebook)
     s_n, qn, h, d = q.shape
     _, page, kh, _ = k_pages.shape
     dv = v_pages.shape[-1]
@@ -107,6 +139,10 @@ def paged_mixed_attention_plain(q, k_pages, v_pages, table, lengths, q_lens,
     v = v_pages[:, :logical][tab].reshape(s_n, span, kh, dv).float()
     qf = q.float().reshape(s_n, qn, kh, g, d)
     sc = torch.einsum("sqkgd,spkd->skgqp", qf, k)
+    if q2 is not None:
+        k2 = k2_pages[:, :logical][tab].reshape(s_n, span, kh, -1).float()
+        q2f = q2.float().reshape(s_n, qn, kh, g, -1)
+        sc = sc + torch.einsum("sqkgd,spkd->skgqp", q2f, k2)
     if scale != 1.0:
         sc = sc * scale
     if softcap_val:
@@ -134,13 +170,18 @@ def paged_mixed_attention(q, k_pages, v_pages, table, lengths, q_lens,
     """out (S, Q, H, Dv) float32 — ragged mixed-step paged attention.
 
     ``q`` (S, Q, H, D) is pre-scaled (GQA callers fold ``D ** -0.5`` in);
-    ``scale`` multiplies the summed scores.  With ``k_scales`` the pools
-    are int8 codec codes decoded against ``codebook`` (``dequant``:
-    ``"gather"`` or ``"onehot"``, the same bits).  CUDA tensors go through
-    the kernel (or raise); CPU tensors take the plain version."""
-    _check_unported(q2, k2_pages, k2_scales, pages_per_step)
+    ``scale`` multiplies the summed scores.  ``q2`` (S, Q, H, D2) and
+    ``k2_pages`` (n_pages, rows, KH, D2), both or neither, add MLA's
+    second score operand ``q2 . k2``.  With ``k_scales`` the pools are
+    int8 codec codes decoded against ``codebook`` (``dequant``:
+    ``"gather"`` or ``"onehot"``, the same bits), ``k2_pages`` with its
+    own ``k2_scales``.  CUDA tensors go through the kernel (or raise); CPU
+    tensors take the plain version."""
+    if pages_per_step != 1:
+        raise NotImplementedError("pages_per_step > 1 is not ported yet")
     codec = _check_codec(k_pages, v_pages, k_scales, v_scales, codebook,
                          dequant)
+    mla = _check_mla(q, k_pages, q2, k2_pages, k2_scales, codec)
     s_n, qn, h, d = q.shape
     n_pages, page, kh, dk = k_pages.shape
     dv = v_pages.shape[-1]
@@ -153,7 +194,8 @@ def paged_mixed_attention(q, k_pages, v_pages, table, lengths, q_lens,
     if q.device.type == "cpu":
         return paged_mixed_attention_plain(
             q, k_pages, v_pages, table, lengths, q_lens, k_scales, v_scales,
-            codebook, window=window, softcap_val=softcap_val, scale=scale,
+            codebook, q2=q2, k2_pages=k2_pages, k2_scales=k2_scales,
+            window=window, softcap_val=softcap_val, scale=scale,
             page_size=page_size)
     if not q.is_cuda:
         raise ValueError(f"unsupported device {q.device}")
@@ -167,17 +209,24 @@ def paged_mixed_attention(q, k_pages, v_pages, table, lengths, q_lens,
                          f"{v_pages.dtype}")
     if max(d, dv) > _MAX_HEAD_DIM:
         raise ValueError(f"head dims {d}/{dv} exceed {_MAX_HEAD_DIM}")
+    per_lane = next(n for n in _PER_LANE if max(d, dv) <= 32 * n)
+    d2 = q2.shape[-1] if mla else 0
+    if d2 > _MAX_Q2_DIM:
+        raise ValueError(f"q2 head dim {d2} exceeds {_MAX_Q2_DIM}")
     q = q.float().contiguous()
+    if mla:
+        q2 = q2.float().contiguous()
     table = table.to(torch.int32).contiguous()
     lengths = lengths.to(torch.int32).contiguous()
     q_lens = q_lens.to(torch.int32).contiguous()
     named = [("k_pages", k_pages), ("v_pages", v_pages), ("table", table),
              ("lengths", lengths), ("q_lens", q_lens)]
+    if mla:
+        named += [("q2", q2), ("k2_pages", k2_pages)]
     if codec:
-        named += [("k_scales", k_scales), ("v_scales", v_scales),
-                  ("codebook", codebook)]
-        if any(t.dtype != torch.float32 for t in (k_scales, v_scales,
-                                                   codebook)):
+        f32s = [k_scales, v_scales, codebook] + ([k2_scales] if mla else [])
+        named += [("scales and codebook", t) for t in f32s]
+        if any(t.dtype != torch.float32 for t in f32s):
             raise ValueError("scales and codebook must be float32")
     for name, t in named:
         if t.device != q.device or not t.is_contiguous():
@@ -186,20 +235,29 @@ def paged_mixed_attention(q, k_pages, v_pages, table, lengths, q_lens,
     lib = _build.load("paged_attention")
     fn = lib.paged_attention_launch
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] \
-        + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 \
+        + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 12 \
         + [ctypes.c_float] * 2 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    codec_ptrs = [t.data_ptr() for t in (k_scales, v_scales, codebook)] \
-        if codec else [None] * 3
+
+    def ptr(t, given=True):
+        return t.data_ptr() if given else None
+
     code = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), pools,
-              *codec_ptrs, table.data_ptr(),
-              lengths.data_ptr(), q_lens.data_ptr(), out.data_ptr(),
-              s_n, qn, h, kh, d, dv, page, logical, table.shape[1],
-              int(window), float(softcap_val), float(scale),
+              ptr(q2, mla), ptr(k2_pages, mla), ptr(k_scales, codec),
+              ptr(v_scales, codec), ptr(k2_scales, codec and mla),
+              ptr(codebook, codec), table.data_ptr(), lengths.data_ptr(),
+              q_lens.data_ptr(), out.data_ptr(), s_n, qn, h, kh, d, dv, d2,
+              per_lane, page, logical, table.shape[1], int(window),
+              float(softcap_val), float(scale),
               torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, "paged_attention", code)
     paged_mixed_attention.launches += 1
+    if mla:
+        paged_mixed_attention.mla_launches += 1
     return out
 
 
-paged_mixed_attention.launches = 0   # kernel launches (not plain calls)
+# kernel launches (not plain calls): all of them, and those with the MLA
+# second score operand
+paged_mixed_attention.launches = 0
+paged_mixed_attention.mla_launches = 0

@@ -13,12 +13,19 @@ supports.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --scale tiny --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --scale tiny --device cuda
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v2-236b \
+      --scale tiny --device cpu --kv-codec cluster
   PYTHONPATH=src python -m repro_torch.launch.serve --scale full \
       --batch 4 --requests 8 --prompt-len 128 --gen 16 \
       --prefill-chunk 64 --kv-page-size 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v2-236b \
+      --scale full --layers 2 --prefill-chunk 64
 
-At ``--scale full`` registration compresses all 64 full-width MLP
-matrices on the host first (about 10 s each on the H100 machine).
+At ``--scale full`` registration compresses every full-width dense MLP
+matrix on the host first (about 10 s each on the H100 machine; 64 for
+minitron-8b).  deepseek-v2-236b does not fit one card at full depth
+(236B parameters, about 472 GB in bf16), so its full scale needs a
+``--layers`` cut, which keeps its published widths.
 """
 
 from __future__ import annotations
@@ -44,9 +51,53 @@ TINY_OVERRIDES = dict(
 )
 
 
+# archs whose full depth does not fit one card, and why
+TOO_DEEP_FOR_ONE_CARD = {
+    "deepseek-v2-236b": "236B parameters, about 472 GB in bf16, against "
+                        "80 GB on one H100"}
+
+
 def tiny_config(arch: str):
-    """The reference's ``--scale tiny`` config for a dense arch."""
-    return cfgs.get_config(arch).scaled(**TINY_OVERRIDES)
+    """The reference's ``--scale tiny`` config (``repro.launch.train``'s
+    overrides, for the families this port runs)."""
+    cfg = cfgs.get_config(arch)
+    over = dict(TINY_OVERRIDES)
+    if cfg.family == "moe":
+        over.update(num_experts=4, top_k=2, moe_d_ff=128,
+                    num_shared_experts=min(1, cfg.num_shared_experts))
+        if cfg.prefix_kinds:
+            over.update(prefix_kinds=cfg.prefix_kinds[:1], scan_repeats=1,
+                        num_layers=2)
+        if cfg.kv_lora_rank:
+            over.update(num_kv_heads=4, kv_lora_rank=32, q_lora_rank=48,
+                        rope_head_dim=16, nope_head_dim=32, v_head_dim=32)
+    return cfg.scaled(**over)
+
+
+def cut_depth(cfg, layers: int):
+    """``cfg`` at its published widths with ``layers`` blocks: the prefix
+    and suffix blocks kept, the repeated pattern cut."""
+    fixed = len(cfg.prefix_kinds) + len(cfg.suffix_kinds)
+    repeats = (layers - fixed) // len(cfg.scan_pattern)
+    if repeats < 0 or fixed + repeats * len(cfg.scan_pattern) != layers:
+        raise ValueError(f"{cfg.name}: cannot cut to {layers} layers "
+                         f"({fixed} fixed + repeats of {cfg.scan_pattern})")
+    return cfg.scaled(num_layers=layers, scan_repeats=repeats)
+
+
+def full_config(arch: str, layers: int | None = None):
+    """The published config, depth cut to ``layers`` when given; an arch
+    that does not fit one card at full depth needs the cut."""
+    cfg = cfgs.get_config(arch)
+    if layers is None:
+        if arch in TOO_DEEP_FOR_ONE_CARD:
+            raise ValueError(
+                f"{arch} at full depth ({cfg.num_layers} layers) does not "
+                f"fit one card: {TOO_DEEP_FOR_ONE_CARD[arch]}; pass "
+                f"--layers N to serve it at its published widths with "
+                f"N layers")
+        return cfg
+    return cut_depth(cfg, layers)
 
 
 def codec_report(pool, m) -> None:
@@ -73,6 +124,9 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="minitron-8b", choices=cfgs.PORTED)
     ap.add_argument("--scale", choices=["tiny", "full"], default="tiny")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="at --scale full: cut the depth to this many "
+                         "layers (published widths)")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                     help="cuda runs the CUDA kernels; cpu their plain "
                          "PyTorch versions")
@@ -112,8 +166,16 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
-    cfg = tiny_config(args.arch) if args.scale == "tiny" \
-        else cfgs.get_config(args.arch)
+    if args.scale == "tiny":
+        if args.layers is not None:
+            ap.error("--layers cuts the depth at --scale full only")
+        cfg = tiny_config(args.arch)
+    else:
+        cfg = full_config(args.arch, args.layers)
+        if args.layers is not None:
+            print(f"depth cut: {args.arch} "
+                  f"{cfgs.get_config(args.arch).num_layers} -> "
+                  f"{cfg.num_layers} layers (published widths)")
     n_requests = args.requests or args.batch
     cache_bytes = None if args.cache_mb is None \
         else int(args.cache_mb * 2 ** 20)

@@ -8,9 +8,11 @@ carries across leaf for leaf (:func:`params_from_numpy`).  The scan over
 repeats becomes a Python loop over the stacked leaves' first axis.
 
 Ported so far: dense attention blocks (kind ``"attn"``, the minitron
-stack) and the ragged :func:`mixed_step` of the in-kernel backend, with
-fp pools or ``kv_codec="cluster"`` int8 code pools plus a scale-pool tree.
-Other block kinds raise ``NotImplementedError``.
+stack), MLA blocks with a dense MLP or shared + routed experts
+(``"mla_dense"``, ``"mla_moe"``, the deepseek-v2 stack) and the ragged
+:func:`mixed_step` of the in-kernel backend, with fp pools or
+``kv_codec="cluster"`` int8 code pools plus a scale-pool tree.  Other
+block kinds raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -19,11 +21,14 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (embed_init, mlp_apply, mlp_init,
                                        rms_norm, rms_norm_init, softcap)
 from repro_torch.tree import params_from_numpy, tree_map  # noqa: F401
 
-PORTED_KINDS = ("attn",)
+MOE_KINDS = ("swa_moe", "mla_moe", "moe")
+MLA_KINDS = ("mla_dense", "mla_moe")
+PORTED_KINDS = ("attn", "mla_dense", "mla_moe")
 
 
 def check_supported(cfg) -> None:
@@ -44,33 +49,48 @@ def check_supported(cfg) -> None:
 def block_init(kind: str, cfg, gen, dtype, device) -> dict:
     d = cfg.d_model
     p = {"ln1": rms_norm_init(d, dtype, device),
-         "attn": attn.attn_init(gen, cfg, dtype, device),
+         "attn": (attn.mla_init if kind in MLA_KINDS else attn.attn_init)(
+             gen, cfg, dtype, device),
          "ln2": rms_norm_init(d, dtype, device)}
-    if cfg.d_ff:
+    if kind in MOE_KINDS:
+        p["moe"] = moe_mod.moe_init(gen, cfg, dtype, device)
+    elif cfg.d_ff:
         p["mlp"] = mlp_init(gen, d, cfg.d_ff, cfg.mlp_act, dtype, device)
     return p
 
 
 def block_apply(kind: str, cfg, p: dict, x: torch.Tensor, *, cache, pos,
                 paged, q_lens=None, scales=None):
-    """-> (x, cache), or (x, cache, scales) with ``scales``: attention over
-    the page pools, then the MLP (binarised when ``cfg.binarize_mlp``, the
-    compressed serving mode).  ``scales`` holds this block's codec scale
-    pools (same keys as the cache) and implies int8 code pools."""
+    """-> (x, cache), or (x, cache, scales) with ``scales``: attention (GQA,
+    or MLA for the MLA kinds) over the page pools, then the MLP (binarised
+    when ``cfg.binarize_mlp``, the compressed serving mode) or the MoE.
+    ``scales`` holds this block's codec scale pools (same keys as the
+    cache) and implies int8 code pools.  The MoE's aux loss is a training
+    term: serving computes it and drops it, as the reference's
+    ``mixed_step`` does."""
     h = rms_norm(p["ln1"], x, cfg.norm_eps)
-    y, *state = attn.attn_apply(p["attn"], h, cfg, kind=kind, cache=cache,
-                                pos=pos, paged=paged, q_lens=q_lens,
-                                scales=scales)
+    kw = dict(cache=cache, pos=pos, paged=paged, q_lens=q_lens,
+              scales=scales)
+    if kind in MLA_KINDS:
+        y, *state = attn.mla_apply(p["attn"], h, cfg, **kw)
+    else:
+        y, *state = attn.attn_apply(p["attn"], h, cfg, kind=kind, **kw)
     x = x + y
-    if "mlp" in p:
+    if "moe" in p or "mlp" in p:
         h2 = rms_norm(p["ln2"], x, cfg.norm_eps)
-        x = x + mlp_apply(p["mlp"], h2, cfg.mlp_act,
-                          binarized=cfg.binarize_mlp)
+        if kind in MOE_KINDS:
+            y2, _aux = moe_mod.moe_apply(p["moe"], h2, cfg)
+        else:
+            y2 = mlp_apply(p["mlp"], h2, cfg.mlp_act,
+                           binarized=cfg.binarize_mlp)
+        x = x + y2
     return (x, *state)
 
 
 def block_cache_spec(kind: str, cfg, batch: int, max_len: int) -> dict:
     """Shape/dtype stand-ins (meta tensors) of one block's KV cache."""
+    if kind in MLA_KINDS:
+        return attn.mla_cache_spec(cfg, batch, max_len)
     window = cfg.window if kind in ("swa", "local") else 0
     length = min(window, max_len) if window else max_len
     shp = (batch, length, cfg.num_kv_heads, cfg.head_dim)
@@ -180,7 +200,8 @@ def mixed_step(cfg, params, cache, table, tokens, poss, q_lens, *,
     starting at position ``poss[s]``.
 
     ``cache`` has the tree of :func:`init_cache_specs` with every leaf a
-    physical page pool ``(repeats?, n_pages, page, KH, D)``; ``table``
+    physical page pool ``(repeats?, n_pages, page, KH, D)`` (MLA:
+    ``(repeats?, n_pages, page, r_kv)`` and ``(..., dr)``); ``table``
     (S, P) maps logical to physical pages.  The pools are updated in place
     and returned.  -> (logits (S, Q, V) f32, cache); rows past
     ``q_lens[s]`` are padding the caller ignores.

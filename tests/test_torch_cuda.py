@@ -214,6 +214,84 @@ def test_codec_encode_on_the_card_equals_the_cpu(dev):
     assert torch.equal(dscale.cpu(), scale)
 
 
+def _mla(dev, dtype, seed, d, d2):
+    """``_paged``'s ragged block as MLA's absorbed attention: one latent
+    KV head (pool (n_pages, rows, 1, d), the key and value pool at once)
+    and a rope pool (n_pages, rows, 1, d2) scored against q2."""
+    q, c, _, table, lengths, q_lens, logical = _paged(dev, dtype, seed, d)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    c = c[:, :, :1].contiguous()
+    q2 = torch.randn((*q.shape[:3], d2), generator=gen, device=dev)
+    pe = torch.randn((*c.shape[:3], d2), generator=gen, device=dev).to(dtype)
+    return q * d ** 0.5, c, q2, pe, table, lengths, q_lens, logical
+
+
+@pytest.mark.parametrize("d,d2", [(32, 8), (512, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mla_kernel_vs_plain(dev, dtype, d, d2):
+    q, c, q2, pe, table, lengths, q_lens, logical = _mla(dev, dtype, 11, d,
+                                                         d2)
+    kw = dict(scale=(d // 4 + d2) ** -0.5, page_size=logical)
+    before = (paged_mixed_attention.launches,
+              paged_mixed_attention.mla_launches)
+    got = paged_mixed_attention(q, c, c, table, lengths, q_lens, q2, pe,
+                                **kw)
+    want = paged_mixed_attention_plain(q, c, c, table, lengths, q_lens,
+                                       q2=q2, k2_pages=pe, **kw)
+    torch.cuda.synchronize()
+    assert (paged_mixed_attention.launches,
+            paged_mixed_attention.mla_launches) == (before[0] + 1,
+                                                    before[1] + 1)
+    # summation order only, as for GQA; at D = 512 a score sums 576 terms
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("d,d2", [(32, 8), (512, 64)])
+def test_mla_codec_kernel_bit_identical_to_fp_on_decoded_pools(dev, d, d2):
+    q, c, q2, pe, table, lengths, q_lens, logical = _mla(
+        dev, torch.float32, 12, d, d2)
+    (cc, cs), (pc, ps) = (kv_codec.encode(x, (-2, -1)) for x in (c, pe))
+    cb = kv_codec.codebook(dev)
+    cd, pd = decode_pool(cc, cs, cb), decode_pool(pc, ps, cb)
+    kw = dict(scale=0.1, page_size=logical)
+    fp = paged_mixed_attention(q, cd, cd, table, lengths, q_lens, q2, pd,
+                               **kw)
+    want = paged_mixed_attention_plain(q, cc, cc, table, lengths, q_lens,
+                                       cs, cs, cb, q2=q2, k2_pages=pc,
+                                       k2_scales=ps, **kw)
+    for dequant in ("gather", "onehot"):
+        got = paged_mixed_attention(q, cc, cc, table, lengths, q_lens, q2,
+                                    pc, cs, cs, ps, cb, dequant=dequant, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, fp), dequant
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    for codes, scales in ((cc, cs), (pc, ps)):         # poison page 0
+        codes[0], codes[:, logical:] = 127, 127
+        scales[0], scales[:, logical:] = 1e6, 1e6
+    poisoned = paged_mixed_attention(q, cc, cc, table, lengths, q_lens, q2,
+                                     pc, cs, cs, ps, cb, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(poisoned, fp)
+
+
+def test_mla_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    q, c, q2, pe, table, lengths, q_lens, _ = _mla(dev, torch.float32, 13,
+                                                   32, 8)
+    args = (q, c, c, table, lengths, q_lens)
+    with pytest.raises(ValueError, match="q2 and k2_pages"):
+        paged_mixed_attention(*args, q2)
+    with pytest.raises(ValueError, match="dtype"):
+        paged_mixed_attention(*args, q2, pe.to(torch.bfloat16))
+    wide = torch.zeros((*q.shape[:3], 96), device=dev)
+    with pytest.raises(ValueError, match="exceeds 64"):
+        paged_mixed_attention(*args, wide, torch.zeros(
+            (*c.shape[:3], 96), device=dev))
+    with pytest.raises(ValueError, match="exceed 512"):
+        big = torch.zeros((*c.shape[:3], 544), device=dev)
+        paged_mixed_attention(torch.zeros((*q.shape[:3], 544), device=dev),
+                              big, big, table, lengths, q_lens)
+
+
 # --- binary kernels --------------------------------------------------------
 
 def _signs(rng, shape):

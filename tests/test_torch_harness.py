@@ -87,7 +87,8 @@ _PORT_MODULES = {
     "repro_torch.kernels.binarize_pack", "repro_torch.kernels.binary_contraction",
     "repro_torch.kernels.fused_decode_contraction", "repro_torch.kernels.ops",
     "repro_torch.models.reactnet", "repro_torch.configs.reactnet",
-    "repro_torch.kernels.kv_codec",
+    "repro_torch.kernels.kv_codec", "repro_torch.models.moe",
+    "repro_torch.configs.deepseek_v2_236b",
 }
 
 

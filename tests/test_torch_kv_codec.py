@@ -237,9 +237,25 @@ def test_codec_wrapper_refuses_what_it_does_not_take():
     with pytest.raises(ValueError, match="dequant"):
         paged_mixed_attention(*args, k_scales=ks, v_scales=vs,
                               codebook=kv.codebook(), dequant="bitplane")
-    with pytest.raises(NotImplementedError, match="MLA"):
+    # the MLA second operand under the codec needs its own scale pool, and
+    # runs with it (tests/test_torch_mla.py holds it to the reference)
+    q2 = torch.zeros((*args[0].shape[:3], 8))
+    k2 = torch.zeros((*kc.shape[:3], 8), dtype=torch.int8)
+    with pytest.raises(ValueError, match="k2_scales without"):
         paged_mixed_attention(*args, k_scales=ks, v_scales=vs,
                               k2_scales=ks, codebook=kv.codebook())
+    with pytest.raises(ValueError, match="k2_scales comes with codec"):
+        paged_mixed_attention(*args, q2, k2, k_scales=ks, v_scales=vs,
+                              codebook=kv.codebook())
+    with pytest.raises(ValueError, match="dtype"):
+        paged_mixed_attention(*args, q2, k2.float(), k_scales=ks,
+                              v_scales=vs, k2_scales=ks,
+                              codebook=kv.codebook())
+    got = paged_mixed_attention(*args, q2, k2, k_scales=ks, v_scales=vs,
+                                k2_scales=ks, codebook=kv.codebook())
+    want = paged_mixed_attention(*args, k_scales=ks, v_scales=vs,
+                                 codebook=kv.codebook())
+    assert got.numpy().tobytes() == want.numpy().tobytes()
 
 
 # ---------------------------------------------------------------------------

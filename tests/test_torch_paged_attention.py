@@ -119,15 +119,28 @@ def test_poisoned_dummy_sink_and_padding_rows_are_inert():
 def test_unported_options_raise():
     c = paged_case(4, qn=1, q_lens=[1], lengths=[3])
     # the int8 codec runs (tests/test_torch_kv_codec.py holds it to the
-    # reference); only the MLA part of it, k2_scales, still raises
+    # reference)
     zero_codes = np.zeros(c["k"].shape, np.int8)
     scales = torch.zeros(c["k"].shape[:2])
     out = port({**c, "k": zero_codes, "v": zero_codes}, k_scales=scales,
                v_scales=scales, codebook=kv_codec.codebook())
     assert out.shape == c["q"].shape and not out.any()
-    with pytest.raises(NotImplementedError, match="MLA"):
+    # the MLA second operand runs (tests/test_torch_mla.py holds it to the
+    # reference): a zero one adds exactly 0.0 to every score
+    q2 = torch.zeros((*c["q"].shape[:3], 8))
+    k2 = torch.zeros((*c["k"].shape[:3], 8))
+    assert port(c, q2=q2, k2_pages=k2).tobytes() == port(c).tobytes()
+    # a half-given one is refused
+    with pytest.raises(ValueError, match="k2_scales without"):
         port(c, k2_scales=scales)
+    with pytest.raises(ValueError, match="q2 and k2_pages"):
+        port(c, q2=q2)
+    with pytest.raises(ValueError, match="q2 and k2_pages"):
+        port(c, k2_pages=k2)
+    with pytest.raises(ValueError, match="k2_scales comes with codec"):
+        port(c, q2=q2, k2_pages=k2, k2_scales=scales)
+    with pytest.raises(ValueError, match="dtype"):
+        port(c, q2=q2, k2_pages=k2.to(torch.bfloat16))
+    # pages_per_step > 1 is a TPU launch knob the port does not take
     with pytest.raises(NotImplementedError, match="pages_per_step"):
         port(c, pages_per_step=2)
-    with pytest.raises(NotImplementedError, match="MLA"):
-        port(c, q2=torch.zeros(1))
