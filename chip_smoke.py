@@ -17,9 +17,9 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` with nvcc
   by those runs, that every request completed, that a second run gives
   the same tokens, and that ``WeightStore.fused_operands`` on a
   full-width MLP matrix gives the materialised weights' binary product;
-* MLA: holds the paged-attention kernel's MLA second score operand (one
-  512-wide latent head that is key and value, a 64-wide rope operand,
-  128 query heads; fp and codec pools) against its plain version, then
+* MLA: holds the MLA paged-attention kernel (one 512-wide latent head
+  that is key and value, a 64-wide rope operand, 128 query heads; fp and
+  codec pools; split TF32 on tensor cores) against its plain version, then
   serves deepseek-v2-236b at its published widths (depth cut to 2 layers,
   one dense-MLP and one MoE block) the same way, with fp pools and with
   the codec; a small minitron and a small deepseek served on the card
@@ -65,7 +65,8 @@ from repro_torch.kernels.fused_decode_contraction import \
 from repro_torch.kernels.huffman_decode import (  # noqa: E402
     flat_table, huffman_decode, pack_bitplane_tables)
 from repro_torch.kernels.paged_attention import (  # noqa: E402
-    decode_pool, paged_mixed_attention, paged_mixed_attention_plain)
+    decode_pool, mla_kernel_info, paged_mixed_attention,
+    paged_mixed_attention_plain)
 from repro_torch.launch.serve import (  # noqa: E402
     TOO_DEEP_FOR_ONE_CARD, codec_report, cut_depth, tiny_config)
 from repro_torch.models import reactnet as rn  # noqa: E402
@@ -76,6 +77,7 @@ from repro_torch.tree import (  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 F32_OPS_PER_S = 67e12            # H100 SXM CUDA cores, an FMA counted as 2
+TF32_OPS_PER_S = 495e12          # H100 SXM tensor cores, TF32 dense
 # int32 issue rate: 132 SMs x 64 INT32 lanes x 1.98 GHz boost, one op per
 # lane per clock -- a quarter of the f32 rate (half the lanes, no FMA pair)
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
@@ -584,8 +586,11 @@ def profile_serve(engine, prompts, kv_codec="none") -> None:
         return
     print(f"profile: device busy {busy:.1f} ms = {busy / wall_ms * 100:.1f}% "
           f"of wall (idle {100 - busy / wall_ms * 100:.1f}%)")
-    for key, ms, n in sorted(rows, key=lambda r: -r[1])[:8]:
-        print(f"  {ms:9.3f} ms  x{n:<5d} {key[:90]}")
+    ranked = sorted(rows, key=lambda r: -r[1])
+    # the top 8, and the port's attention kernels wherever they rank
+    for i, (key, ms, n) in enumerate(ranked):
+        if i < 8 or "attention_kernel" in key:
+            print(f"  {ms:9.3f} ms  x{n:<5d} {key[:90]}")
 
 
 def phase_small_reference(dev, cfg, label) -> None:
@@ -749,22 +754,45 @@ def _mla_case(q, c, q2, pe, table, ln, ql, qn, dev) -> tuple:
                       table, ln, ql, scale=MLA_SCALE)
     clib_ms = _sdpa_ms(torch.cat([q, q2], -1), torch.cat([cd, pd], -1), cd,
                        table, ln, ql, scale=MLA_SCALE)
-    bms, by = bound_ms(*_attn_bytes_ops(q, c, table, ln, ql, 0, q2=q2,
-                                        k2=pe, shared_kv=True))
+    # the kernel runs both products on tensor cores, so its bound is the
+    # function's operations at the TF32 rate (the split's extra MMAs are
+    # the kernel's cost, not the function's); the f32 CUDA-core bound is
+    # printed beside it
+    nbytes, ops = _attn_bytes_ops(q, c, table, ln, ql, 0, q2=q2, k2=pe,
+                                  shared_kv=True)
+    bms, by = bound_ms(nbytes, ops, ops_per_s=TF32_OPS_PER_S)
+    f32_bms, _ = bound_ms(nbytes, ops)
     cbytes, cops = _attn_bytes_ops(q, cc, table, ln, ql, 0, codec=True,
                                    q2=q2, k2=pc, shared_kv=True)
-    cbms, cby = bound_ms(cbytes, cops)
-    print(f"  MLA codec Q={qn} bounds: bytes "
-          f"{cbytes / HBM_BYTES_PER_S * 1e3:.4f} ms ({cbytes} B), operations "
-          f"{cops / F32_OPS_PER_S * 1e3:.4f} ms ({cops} f32 ops)")
-    return worst, cworst, ((ms, plain_ms, lib_ms, bms, by),
+    cbms, cby = bound_ms(cbytes, cops, ops_per_s=TF32_OPS_PER_S)
+    cf32_bms, _ = bound_ms(cbytes, cops)
+    for label, b, o, tb, fb in (("", nbytes, ops, bms, f32_bms),
+                                (" codec", cbytes, cops, cbms, cf32_bms)):
+        print(f"  MLA{label} Q={qn} bounds: bytes "
+              f"{b / HBM_BYTES_PER_S * 1e3:.4f} ms ({b} B), operations "
+              f"{o / TF32_OPS_PER_S * 1e3:.4f} ms at the TF32 tensor-core "
+              f"rate, {o / F32_OPS_PER_S * 1e3:.4f} ms at the f32 CUDA-core "
+              f"rate ({o} ops): bound {tb:.4f} ms (TF32), {fb:.4f} ms (f32)")
+    return worst, cworst, ((ms, plain_ms, lib_ms, bms, by, f32_bms),
                            (cms, cplain_ms, clib_ms, cbms, cby, decode_ms,
-                            onehot_ms))
+                            onehot_ms, cf32_bms))
 
 
 def phase_attention_mla(dev) -> list:
-    """The MLA branch of the paged-attention kernel at deepseek-v2's
-    serving shapes, against its plain version, fp and codec."""
+    """The MLA paged-attention kernel at deepseek-v2's serving shapes,
+    against its plain version, fp and codec."""
+    for qn in (64, 1):
+        for pools in ("bfloat16", "float32", "gather", "onehot"):
+            info = mla_kernel_info(pools, SERVE_BATCH, qn, MLA_HEADS,
+                                   MLA_LATENT, MLA_ROPE)
+            print(f"paged_mla_attention kernel at Q={qn} ({pools} pools): "
+                  f"{info['rows']} query rows a block, "
+                  f"{info['registers']} registers a thread, "
+                  f"{info['local_bytes']} local (spill) bytes, "
+                  f"{info['smem_bytes']} B of dynamic shared memory a "
+                  f"block at D={MLA_LATENT}, D2={MLA_ROPE}")
+            if info["local_bytes"]:
+                fail(f"the MLA kernel ({pools}) spills to local memory")
     gen = torch.Generator(device=dev).manual_seed(5)
     pps = -(-(int(SERVE_PROMPTS.max()) + SERVE_GEN) // SERVE_PAGE)
     span = pps * SERVE_PAGE
@@ -775,17 +803,20 @@ def phase_attention_mla(dev) -> list:
         args = _mla_inputs(dev, qn, q_lens, lengths, pps, gen)
         err, cerr, timing[qn] = _mla_case(*args, qn, dev)
         worst, cworst = max(worst, err), max(cworst, cerr)
-        (ms, plain_ms, lib_ms, bms, by), (cms, cplain, clib, cbms, cby, dec,
-                                          onehot) = timing[qn]
+        (ms, plain_ms, lib_ms, bms, by, fbms), (cms, cplain, clib, cbms, cby,
+                                                dec, onehot, cfbms) = \
+            timing[qn]
         print(f"paged_mixed_attention MLA Q={qn} (S={SERVE_BATCH}, H="
               f"{MLA_HEADS}, KH=1, D=Dv={MLA_LATENT}, D2={MLA_ROPE}, page "
               f"{SERVE_PAGE}, {pps} pages/slot, bf16 pools, q_lens {q_lens}):"
               f" kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa (D=576) "
-              f"{lib_ms:.4f} ms, bound {bms:.4f} ms ({by})")
+              f"{lib_ms:.4f} ms ({ms / lib_ms:.2f}x the kernel/sdpa), bound "
+              f"{bms:.4f} ms ({by}, TF32), f32 bound {fbms:.4f} ms")
         print(f"paged_mixed_attention MLA codec Q={qn}: kernel {cms:.4f} ms "
               f"(onehot {onehot:.4f} ms), plain {cplain:.4f} ms, sdpa on the "
-              f"decoded f32 view {clib:.4f} ms + decode {dec:.4f} ms, bound "
-              f"{cbms:.4f} ms ({cby})")
+              f"decoded f32 view {clib:.4f} ms + decode {dec:.4f} ms "
+              f"({cms / (clib + dec):.2f}x kernel/(sdpa + decode)), bound "
+              f"{cbms:.4f} ms ({cby}, TF32), f32 bound {cfbms:.4f} ms")
     print(f"paged_mixed_attention MLA: max abs err {worst:.3e} (fp), "
           f"{cworst:.3e} (codec) <= {ATTN_TOL} vs plain on rows i < q_lens "
           f"over Q {{64, 1}} x window {{0, 100}} x softcap {{0, "
@@ -794,31 +825,36 @@ def phase_attention_mla(dev) -> list:
           f"rope, codes, scales) inert")
     shape = (f"S=4 Q=64 H={MLA_HEADS} KH=1 D=Dv={MLA_LATENT} D2={MLA_ROPE} "
              f"page=16")
-    (ms, plain_ms, lib_ms, bms, by), _ = timing[64]
-    (q1, p1, l1, b1, _), (cq1, cp1, cl1, cb1, _, cd1, _) = timing[1]
+    (ms, plain_ms, lib_ms, bms, by, fbms), _ = timing[64]
+    (q1, p1, l1, b1, _, fb1), (cq1, cp1, cl1, cb1, _, cd1, _, cfb1) = \
+        timing[1]
+    source = "src/repro_torch/csrc/paged_mla_attention.cu"
     fp = {"name": "paged_mixed_attention_mla", "route": "cuda",
-          "variant_of": "paged_mixed_attention",
-          "source": "src/repro_torch/csrc/paged_attention.cu",
+          "variant_of": "paged_mixed_attention", "source": source,
           "replaces": "src/repro/kernels/paged_attention.py:239",
           "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-          "bound_ms": bms, "bound_by": by, "library_ms": lib_ms,
+          "bound_ms": bms, "bound_by": by, "bound_f32_ms": fbms,
+          "library_ms": lib_ms,
           "shape": f"{shape} bf16 (library_ms: SDPA of q||q2 against "
-                   f"c||pe, D=576, values c, on the gathered view)",
+                   f"c||pe, D=576, values c, on the gathered view; "
+                   f"bound_ms at the TF32 tensor-core rate)",
           "decode_q1": {"ms": q1, "plain_ms": p1, "library_ms": l1,
-                        "bound_ms": b1}}
-    _, (ms, plain_ms, lib_ms, bms, by, dec_ms, onehot_ms) = timing[64]
+                        "bound_ms": b1, "bound_f32_ms": fb1}}
+    _, (ms, plain_ms, lib_ms, bms, by, dec_ms, onehot_ms, fbms) = timing[64]
     codec = {"name": "paged_mixed_attention_mla_codec", "route": "cuda",
-             "variant_of": "paged_mixed_attention",
-             "source": "src/repro_torch/csrc/paged_attention.cu",
+             "variant_of": "paged_mixed_attention", "source": source,
              "replaces": "src/repro/kernels/paged_attention.py:239",
              "max_abs_err": cworst, "ms": ms, "plain_ms": plain_ms,
-             "bound_ms": bms, "bound_by": by, "library_ms": lib_ms,
+             "bound_ms": bms, "bound_by": by, "bound_f32_ms": fbms,
+             "library_ms": lib_ms,
              "library_decode_ms": dec_ms, "onehot_ms": onehot_ms,
              "shape": f"{shape} int8 codes + f32 scales (library_ms: SDPA "
                       f"on the decoded f32 view, its decode in "
-                      f"library_decode_ms)",
+                      f"library_decode_ms; bound_ms at the TF32 "
+                      f"tensor-core rate)",
              "decode_q1": {"ms": cq1, "plain_ms": cp1, "library_ms": cl1,
-                           "bound_ms": cb1, "library_decode_ms": cd1}}
+                           "bound_ms": cb1, "bound_f32_ms": cfb1,
+                           "library_decode_ms": cd1}}
     return [fp, codec]
 
 

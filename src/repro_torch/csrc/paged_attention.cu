@@ -1,10 +1,10 @@
 // Ragged paged attention over slot page tables for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel repro/kernels/paged_attention.py
-// (paged_mixed_attention, _kernel and _dequant) for fp pools, for the
-// int8 KV-page codec and for the MLA second score operand.  Its plain
-// PyTorch version is
+// (paged_mixed_attention, _kernel and _dequant) for fp pools and for the
+// int8 KV-page codec.  Its plain PyTorch version is
 // repro_torch/kernels/paged_attention.py::paged_mixed_attention_plain.
+// Calls with the MLA second score operand go to csrc/paged_mla_attention.cu.
 //
 // Inputs: q (S, Q, H, D) f32 (GQA callers fold the 1/sqrt(D) in); page
 // pools k (n_pages, rows, KH, D) and v (n_pages, rows, KH, Dv) in f32 or
@@ -19,32 +19,24 @@
 // Page 0 is the dummy sink: no valid position maps to it, so it is never
 // read.  Rows i >= q_lens[s] write zeros.  Output (S, Q, H, Dv) f32.
 //
-// MLA second score operand (optional): q2 (S, Q, H, D2) f32 and a pool
-// k2 (n_pages, rows, KH, D2) of k's type (with its own scale pool
-// k2_scales under the codec).  The score of a key is
-// (q . k + q2 . k2) * scale.  MLA's absorbed attention calls it with one
-// latent "KV head" (KH = 1, G = H), the latent pool as both k and v
-// (D = Dv = 512) and the rope part as k2 (D2 = 64).
-//
 // Launch: one warp per (slot, query token, head), four warps a block.
 // Lanes split D (lane l holds elements l, l + 32, ...; kPerLane of them, a
-// template parameter: 4 for D <= 128, 8 for 256, 16 for 512, so a narrow
-// head keeps a narrow register file) and D2 (two a lane, D2 <= 64); each
-// load of a key row is coalesced across the warp, and a butterfly shuffle
-// sums each score.  The warp walks only the positions its token may see,
+// template parameter: 4 for D <= 128, 8 for 256, so a narrow head keeps a
+// narrow register file); each load of a key row is coalesced across the
+// warp, and a butterfly shuffle sums each score.  The warp walks only the positions its token may see,
 // through the slot's page table, with an online softmax in f32.
 //
 // Codec pools: each block stages the codebook in shared memory once; code
 // c of the row at (page, token) decodes to cb[c + 128] * scale[page, token]
-// (one scale serves every KV head of the token; k2 has its own scale),
-// one rounded f32 multiply, and only then enters the dot and the value
-// sum.  Every instruction after the element load is shared with the fp
-// pools (one template), and the multiply-adds are pinned (__fmaf_rn), so
-// the codec kernel gives the fp kernel's bits on pools decoded up front
-// into f32, k2 included.  "gather" reads the codebook entry directly;
-// "onehot" sums the 256 entries masked by (index == code), as the
-// reference's vector-unit lookup did: the same bits, 256 times the work,
-// kept as the bit-identity reference.
+// (one scale serves every KV head of the token), one rounded f32
+// multiply, and only then enters the dot and the value sum.  Every
+// instruction after the element load is shared with the fp pools (one
+// template), and the multiply-adds are pinned (__fmaf_rn), so the codec
+// kernel gives the fp kernel's bits on pools decoded up front into f32.
+// "gather" reads the codebook entry directly; "onehot" sums the 256
+// entries masked by (index == code), as the reference's vector-unit lookup
+// did: the same bits, 256 times the work, kept as the bit-identity
+// reference.
 //
 // What bounds it on the card: the K/V bytes it reads for a decode block
 // (int8 codes halve them against bf16), the score and value products for a
@@ -53,11 +45,8 @@
 // absorb.  This first version keeps one key per loop step per warp, far
 // from either bound: the serial per-key steps of every warp (and, for
 // codec pools, the decode of each element in each of the G warps) set its
-// time.  Under MLA that is extreme: the 128 warps of the one latent head
-// each read (and under the codec decode) the same 512-wide row twice, as
-// key and as value.  Simple and right; tiling keys through shared memory
-// and tensor cores, and decoding each row once per GQA group, is later
-// work.
+// time.  Simple and right; tiling keys through shared memory and tensor
+// cores, and decoding each row once per GQA group, is later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -67,7 +56,6 @@
 namespace {
 
 constexpr int kWarpsPerBlock = 4;
-constexpr int kPerLane2 = 2;         // D2 <= 64
 constexpr int kLevels = 256;         // codebook entries
 constexpr int kZeroCode = 128;       // codebook index of code 0
 
@@ -78,7 +66,7 @@ __device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
 }
 
-// Element e of a K, V or K2 row: the fp value, or the decoded codec value.
+// Element e of a K or V row: the fp value, or the decoded codec value.
 template <typename T, int kMode>
 __device__ __forceinline__ float element(const T* row, int e, float row_scale,
                                          const float* cb) {
@@ -101,22 +89,19 @@ struct Args {
   const float* q;
   const void* k_pages;
   const void* v_pages;
-  const float* q2;
-  const void* k2_pages;
   const float* k_scales;
   const float* v_scales;
-  const float* k2_scales;
   const float* codebook;
   const int32_t* table;
   const int32_t* lengths;
   const int32_t* q_lens;
   float* out;
-  int n_slots, qn, h, kh, d, dv, d2, page_rows, logical, pages_per_slot;
+  int n_slots, qn, h, kh, d, dv, page_rows, logical, pages_per_slot;
   int window;
   float softcap, scale;
 };
 
-template <typename T, int kMode, int kPerLane, bool kQ2>
+template <typename T, int kMode, int kPerLane>
 __global__ void paged_attention_kernel(const Args a) {
   __shared__ float cb[kMode == kFp ? 1 : kLevels];
   if constexpr (kMode != kFp) {
@@ -131,7 +116,7 @@ __global__ void paged_attention_kernel(const Args a) {
   const int head = (int)(warp % a.h);
   const int qi = (int)((warp / a.h) % a.qn);
   const int s = (int)(warp / ((long long)a.h * a.qn));
-  const int d = a.d, dv = a.dv, d2 = a.d2;
+  const int d = a.d, dv = a.dv;
   float* o = a.out + warp * dv;        // (S, Q, H, Dv): row (s, qi, head)
 
   const int qlen = a.q_lens[s];
@@ -144,20 +129,12 @@ __global__ void paged_attention_kernel(const Args a) {
   const T* k_pages = (const T*)a.k_pages;
   const T* v_pages = (const T*)a.v_pages;
   const float* qrow = a.q + warp * d;
-  float qv[kPerLane], acc[kPerLane], q2v[kQ2 ? kPerLane2 : 1];
+  float qv[kPerLane], acc[kPerLane];
 #pragma unroll
   for (int j = 0; j < kPerLane; ++j) {
     const int e = lane + 32 * j;
     qv[j] = e < d ? qrow[e] : 0.f;
     acc[j] = 0.f;
-  }
-  if constexpr (kQ2) {
-    const float* q2row = a.q2 + warp * d2;
-#pragma unroll
-    for (int j = 0; j < kPerLane2; ++j) {
-      const int e = lane + 32 * j;
-      q2v[j] = e < d2 ? q2row[e] : 0.f;
-    }
   }
   float m = -INFINITY, l = 0.f;
   const int32_t* trow = a.table + (long long)s * a.pages_per_slot;
@@ -178,18 +155,6 @@ __global__ void paged_attention_kernel(const Args a) {
       const int e = lane + 32 * j;
       if (e < d) part = __fmaf_rn(qv[j], element<T, kMode>(krow, e, ks, cb),
                                   part);
-    }
-    if constexpr (kQ2) {               // the lane's q2 . k2 terms join its
-      float k2s = 1.f;                 // partial before the butterfly
-      if constexpr (kMode != kFp) k2s = a.k2_scales[prow];
-      const T* k2row = (const T*)a.k2_pages + row * d2;
-#pragma unroll
-      for (int j = 0; j < kPerLane2; ++j) {
-        const int e = lane + 32 * j;
-        if (e < d2)
-          part = __fmaf_rn(q2v[j], element<T, kMode>(k2row, e, k2s, cb),
-                           part);
-      }
     }
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
@@ -218,23 +183,17 @@ __global__ void paged_attention_kernel(const Args a) {
   }
 }
 
-template <typename T, int kMode, int kPerLane>
-void launch_q2(bool has_q2, unsigned blocks, cudaStream_t st, const Args& a) {
-  if (has_q2)
-    paged_attention_kernel<T, kMode, kPerLane, true>
-        <<<blocks, 32 * kWarpsPerBlock, 0, st>>>(a);
-  else
-    paged_attention_kernel<T, kMode, kPerLane, false>
-        <<<blocks, 32 * kWarpsPerBlock, 0, st>>>(a);
-}
-
 template <typename T, int kMode>
-int launch(int per_lane, bool has_q2, unsigned blocks, cudaStream_t st,
-           const Args& a) {
+int launch(int per_lane, unsigned blocks, cudaStream_t st, const Args& a) {
   switch (per_lane) {
-    case 4: launch_q2<T, kMode, 4>(has_q2, blocks, st, a); break;
-    case 8: launch_q2<T, kMode, 8>(has_q2, blocks, st, a); break;
-    case 16: launch_q2<T, kMode, 16>(has_q2, blocks, st, a); break;
+    case 4:
+      paged_attention_kernel<T, kMode, 4>
+          <<<blocks, 32 * kWarpsPerBlock, 0, st>>>(a);
+      break;
+    case 8:
+      paged_attention_kernel<T, kMode, 8>
+          <<<blocks, 32 * kWarpsPerBlock, 0, st>>>(a);
+      break;
     default: return (int)cudaErrorInvalidValue;
   }
   return 0;
@@ -243,44 +202,40 @@ int launch(int per_lane, bool has_q2, unsigned blocks, cudaStream_t st,
 }  // namespace
 
 // pools: 0 = float32, 1 = bfloat16, 2 = int8 codes decoded by "gather",
-// 3 = int8 codes decoded by "onehot" (k_scales, v_scales, k2_scales and
-// codebook are read only for 2 and 3); per_lane: elements of D and Dv a
-// lane holds (4, 8 or 16; D, Dv <= 32 * per_lane); q2 == NULL: no second
-// score operand (k2_pages, k2_scales and d2 unread), else d2 <= 64
+// 3 = int8 codes decoded by "onehot" (k_scales, v_scales and codebook are
+// read only for 2 and 3); per_lane: elements of D and Dv a lane holds (4
+// or 8; D, Dv <= 32 * per_lane)
 extern "C" int paged_attention_launch(
     const void* q, const void* k_pages, const void* v_pages, int pools,
-    const void* q2, const void* k2_pages, const void* k_scales,
-    const void* v_scales, const void* k2_scales, const void* codebook,
+    const void* k_scales, const void* v_scales, const void* codebook,
     const void* table, const void* lengths, const void* q_lens, void* out,
-    int n_slots, int qn, int h, int kh, int d, int dv, int d2, int per_lane,
+    int n_slots, int qn, int h, int kh, int d, int dv, int per_lane,
     int page_rows, int logical, int pages_per_slot, int window,
     float softcap, float scale, void* stream) {
   const long long warps = (long long)n_slots * qn * h;
   if (warps == 0) return (int)cudaGetLastError();
-  const bool has_q2 = q2 != nullptr;
-  if ((d > dv ? d : dv) > 32 * per_lane || (has_q2 && d2 > 32 * kPerLane2))
+  if ((d > dv ? d : dv) > 32 * per_lane)
     return (int)cudaErrorInvalidValue;
   const unsigned blocks =
       (unsigned)((warps + kWarpsPerBlock - 1) / kWarpsPerBlock);
   cudaStream_t st = (cudaStream_t)stream;
-  const Args a{(const float*)q, k_pages, v_pages, (const float*)q2,
-               k2_pages, (const float*)k_scales, (const float*)v_scales,
-               (const float*)k2_scales, (const float*)codebook,
+  const Args a{(const float*)q, k_pages, v_pages, (const float*)k_scales,
+               (const float*)v_scales, (const float*)codebook,
                (const int32_t*)table, (const int32_t*)lengths,
                (const int32_t*)q_lens, (float*)out, n_slots, qn, h, kh, d,
-               dv, d2, page_rows, logical, pages_per_slot, window, softcap,
+               dv, page_rows, logical, pages_per_slot, window, softcap,
                scale};
   int code;
   switch (pools) {
-    case 0: code = launch<float, kFp>(per_lane, has_q2, blocks, st, a); break;
+    case 0: code = launch<float, kFp>(per_lane, blocks, st, a); break;
     case 1:
-      code = launch<__nv_bfloat16, kFp>(per_lane, has_q2, blocks, st, a);
+      code = launch<__nv_bfloat16, kFp>(per_lane, blocks, st, a);
       break;
     case 2:
-      code = launch<int8_t, kGather>(per_lane, has_q2, blocks, st, a);
+      code = launch<int8_t, kGather>(per_lane, blocks, st, a);
       break;
     case 3:
-      code = launch<int8_t, kOneHot>(per_lane, has_q2, blocks, st, a);
+      code = launch<int8_t, kOneHot>(per_lane, blocks, st, a);
       break;
     default: return (int)cudaErrorInvalidValue;
   }

@@ -27,8 +27,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-KERNELS = ("huffman_decode", "paged_attention", "binarize_pack",
-           "binary_contraction", "fused_decode_contraction")
+KERNELS = ("huffman_decode", "paged_attention", "paged_mla_attention",
+           "binarize_pack", "binary_contraction", "fused_decode_contraction")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

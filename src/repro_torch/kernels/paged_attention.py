@@ -3,12 +3,15 @@
 Replaces the Pallas TPU kernel ``repro/kernels/paged_attention.py::
 paged_mixed_attention`` (``_kernel``, ``_dequant``) for fp page pools, for
 the int8 KV-page codec (``kv_codec="cluster"``) and for the MLA second
-score operand.  The kernel is ``csrc/paged_attention.cu``: one warp per
-(slot, query token, head), lanes splitting the head dim, an online softmax
-over the positions the token may see, walked through the slot's page
-table; codec pools are decoded in-kernel from a codebook staged in shared
-memory.  The source note says what bounds it on the card and how this
-first version stands against that.
+score operand.  Two kernels: ``csrc/paged_attention.cu`` for GQA (one warp
+per (slot, query token, head), lanes splitting the head dim, an online
+softmax over the positions the token may see, walked through the slot's
+page table; codec pools decoded in-kernel from a codebook staged in shared
+memory) and ``csrc/paged_mla_attention.cu`` for MLA (one block per (slot,
+query token, 64 or 32 heads), each 16-key tile of latent rows staged and
+decoded once per block, both products on tensor cores in split TF32).
+The source notes say what bounds each on the card and how it stands
+against that.
 
 Layout contract (shared with ``runtime.scheduler.SlotPool``), as in the
 reference: slot ``s`` contributes ``q_lens[s]`` tokens at positions
@@ -26,7 +29,9 @@ front into f32, bit for bit, on either device.
 
 MLA (``q2``/``k2_pages`` given): scores are ``(q . k + q2 . k2) * scale``;
 MLA's absorbed attention passes one latent KV head whose pool is both
-``k_pages`` and ``v_pages`` (``models.attention.mla_apply``).
+``k_pages`` and ``v_pages`` (``models.attention.mla_apply``), and that is
+all the MLA kernel takes (KH = 1, the same pool, and under the codec the
+same scale pool, as key and value; D <= 512, D2 <= 64).
 
 Not ported (it raises): ``pages_per_step > 1``, a TPU launch knob.
 """
@@ -43,10 +48,12 @@ NEG_INF = -1e30
 # the kernel's pool codes: fp pools by dtype, codec pools by dequant mode
 _POOL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _DEQUANT = {"gather": 2, "onehot": 3}
-# elements of D and Dv one lane of the kernel holds (a template parameter)
-_PER_LANE = (4, 8, 16)
+# elements of D and Dv one lane of the GQA kernel holds (a template
+# parameter)
+_PER_LANE = (4, 8)
 _MAX_HEAD_DIM = 32 * _PER_LANE[-1]
-_MAX_Q2_DIM = 64                     # two elements a lane
+# the MLA kernel's widths: latent D (key and value) and rope D2
+_MLA_MAX_D, _MLA_MAX_D2 = 512, 64
 
 
 def _check_mla(q, k_pages, q2, k2_pages, k2_scales, codec: bool) -> bool:
@@ -175,8 +182,9 @@ def paged_mixed_attention(q, k_pages, v_pages, table, lengths, q_lens,
     second score operand ``q2 . k2``.  With ``k_scales`` the pools are
     int8 codec codes decoded against ``codebook`` (``dequant``:
     ``"gather"`` or ``"onehot"``, the same bits), ``k2_pages`` with its
-    own ``k2_scales``.  CUDA tensors go through the kernel (or raise); CPU
-    tensors take the plain version."""
+    own ``k2_scales``.  CUDA tensors go through a kernel (or raise): the
+    MLA kernel when ``q2`` is given, else the GQA one; CPU tensors take the
+    plain version."""
     if pages_per_step != 1:
         raise NotImplementedError("pages_per_step > 1 is not ported yet")
     codec = _check_codec(k_pages, v_pages, k_scales, v_scales, codebook,
@@ -207,12 +215,6 @@ def paged_mixed_attention(q, k_pages, v_pages, table, lengths, q_lens,
         raise ValueError(f"pools must both be float32 or bfloat16 (or int8 "
                          f"codes with scales), got {k_pages.dtype} / "
                          f"{v_pages.dtype}")
-    if max(d, dv) > _MAX_HEAD_DIM:
-        raise ValueError(f"head dims {d}/{dv} exceed {_MAX_HEAD_DIM}")
-    per_lane = next(n for n in _PER_LANE if max(d, dv) <= 32 * n)
-    d2 = q2.shape[-1] if mla else 0
-    if d2 > _MAX_Q2_DIM:
-        raise ValueError(f"q2 head dim {d2} exceeds {_MAX_Q2_DIM}")
     q = q.float().contiguous()
     if mla:
         q2 = q2.float().contiguous()
@@ -232,29 +234,101 @@ def paged_mixed_attention(q, k_pages, v_pages, table, lengths, q_lens,
         if t.device != q.device or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous on {q.device}")
     out = torch.empty((s_n, qn, h, dv), dtype=torch.float32, device=q.device)
-    lib = _build.load("paged_attention")
-    fn = lib.paged_attention_launch
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] \
-        + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 12 \
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if mla:
+        _launch_mla(q, q2, k_pages, v_pages, k2_pages, k_scales, v_scales,
+                    k2_scales, codebook, pools, table, lengths, q_lens, out,
+                    page, logical, window, softcap_val, scale, stream)
+        paged_mixed_attention.mla_launches += 1
+    else:
+        if max(d, dv) > _MAX_HEAD_DIM:
+            raise ValueError(f"head dims {d}/{dv} exceed {_MAX_HEAD_DIM}")
+        per_lane = next(n for n in _PER_LANE if max(d, dv) <= 32 * n)
+        lib = _build.load("paged_attention")
+        fn = lib.paged_attention_launch
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] \
+            + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 11 \
+            + [ctypes.c_float] * 2 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        ptr = (lambda t: t.data_ptr()) if codec else (lambda t: None)
+        code = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                  pools, ptr(k_scales), ptr(v_scales), ptr(codebook),
+                  table.data_ptr(), lengths.data_ptr(), q_lens.data_ptr(),
+                  out.data_ptr(), s_n, qn, h, kh, d, dv, per_lane, page,
+                  logical, table.shape[1], int(window), float(softcap_val),
+                  float(scale), stream)
+        _build.check(lib, "paged_attention", code)
+    paged_mixed_attention.launches += 1
+    return out
+
+
+def _same_tensor(a, b) -> bool:
+    """``a`` and ``b`` view the same elements (``mla_apply`` passes the
+    latent pool twice, as two views of one tensor)."""
+    return a.data_ptr() == b.data_ptr() and a.dtype == b.dtype and \
+        a.shape == b.shape and a.stride() == b.stride()
+
+
+def _launch_mla(q, q2, k_pages, v_pages, k2_pages, k_scales, v_scales,
+                k2_scales, codebook, pools, table, lengths, q_lens, out,
+                page, logical, window, softcap_val, scale, stream) -> None:
+    """Raise on what ``csrc/paged_mla_attention.cu`` does not take, else
+    launch it on ``stream`` into ``out``."""
+    s_n, qn, h, d = q.shape
+    kh, d2 = k_pages.shape[2], q2.shape[-1]
+    if kh != 1:
+        raise ValueError(f"the MLA kernel takes one latent KV head (KH = 1), "
+                         f"got KH={kh}")
+    if not _same_tensor(v_pages, k_pages):
+        raise ValueError("the MLA kernel takes the latent pool as key and "
+                         "value: v_pages must be k_pages")
+    if k_scales is not None and not _same_tensor(v_scales, k_scales):
+        raise ValueError("the MLA kernel takes one latent scale pool: "
+                         "v_scales must be k_scales")
+    if d > _MLA_MAX_D:
+        raise ValueError(f"MLA latent dim {d} exceeds {_MLA_MAX_D}")
+    if d2 > _MLA_MAX_D2:
+        raise ValueError(f"q2 head dim {d2} exceeds {_MLA_MAX_D2}")
+    for name, width in (("latent", d), ("rope", d2)):
+        if width * k_pages.element_size() % 4:
+            raise ValueError(f"MLA {name} pool rows of {width} "
+                             f"{k_pages.dtype} values are not a multiple "
+                             f"of 4 bytes")
+    lib = _build.load("paged_mla_attention")
+    fn = lib.paged_mla_attention_launch
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] \
+        + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 \
         + [ctypes.c_float] * 2 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    codec = k_scales is not None
+    ptr = (lambda t: t.data_ptr()) if codec else (lambda t: None)
+    code = fn(q.data_ptr(), q2.data_ptr(), k_pages.data_ptr(),
+              k2_pages.data_ptr(), pools, ptr(k_scales), ptr(k2_scales),
+              ptr(codebook), table.data_ptr(), lengths.data_ptr(),
+              q_lens.data_ptr(), out.data_ptr(), s_n, qn, h, d, d2, page,
+              logical, table.shape[1], int(window), float(softcap_val),
+              float(scale), stream)
+    _build.check(lib, "paged_mla_attention", code)
 
-    def ptr(t, given=True):
-        return t.data_ptr() if given else None
 
-    code = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), pools,
-              ptr(q2, mla), ptr(k2_pages, mla), ptr(k_scales, codec),
-              ptr(v_scales, codec), ptr(k2_scales, codec and mla),
-              ptr(codebook, codec), table.data_ptr(), lengths.data_ptr(),
-              q_lens.data_ptr(), out.data_ptr(), s_n, qn, h, kh, d, dv, d2,
-              per_lane, page, logical, table.shape[1], int(window),
-              float(softcap_val), float(scale),
-              torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(lib, "paged_attention", code)
-    paged_mixed_attention.launches += 1
-    if mla:
-        paged_mixed_attention.mla_launches += 1
-    return out
+def mla_kernel_info(pools: str, n_slots: int, qn: int, h: int, d: int,
+                    d2: int) -> dict:
+    """The MLA kernel's query rows a block, registers and local (spill)
+    bytes a thread, and dynamic shared memory a block, for a launch of
+    ``n_slots`` x ``qn`` tokens of ``h`` heads over ``pools`` ("float32",
+    "bfloat16", "gather" or "onehot") at latent width ``d`` and rope width
+    ``d2``."""
+    code = {"float32": 0, "bfloat16": 1, **_DEQUANT}[pools]
+    lib = _build.load("paged_mla_attention")
+    fn = lib.paged_mla_attention_info
+    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p] * 4
+    fn.restype = ctypes.c_int
+    vals = [ctypes.c_int(0) for _ in range(4)]
+    _build.check(lib, "paged_mla_attention",
+                 fn(code, n_slots, qn, h, d, d2,
+                    *(ctypes.byref(v) for v in vals)))
+    return dict(zip(("rows", "registers", "local_bytes", "smem_bytes"),
+                    (v.value for v in vals)))
 
 
 # kernel launches (not plain calls): all of them, and those with the MLA

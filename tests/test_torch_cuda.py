@@ -19,6 +19,7 @@ from repro_torch.kernels.binary_contraction import binary_contraction
 from repro_torch.kernels.fused_decode_contraction import fused_decode_matmul
 from repro_torch.kernels.huffman_decode import flat_table, huffman_decode
 from repro_torch.kernels.paged_attention import (decode_pool,
+                                                 mla_kernel_info,
                                                  paged_mixed_attention,
                                                  paged_mixed_attention_plain)
 from repro_torch.runtime.decode_cache import DecodeTileCache
@@ -103,11 +104,11 @@ def test_evicting_decoded_tiles_frees_device_memory(dev):
     assert grown[None] - grown[4 * tile_bytes] == 12 * tile_bytes
 
 
-def _paged(dev, dtype, seed, d=128):
+def _paged(dev, dtype, seed, d=128, h=8):
     """Ragged block (chunk, decode, empty, short chunk) over pools whose
     rows 6..7 are layout padding; later table entries hit the sink."""
     rng = np.random.default_rng(seed)
-    s_n, qn, h, kh, rows, logical, pps = 4, 6, 8, 2, 8, 6, 5
+    s_n, qn, kh, rows, logical, pps = 4, 6, 2, 8, 6, 5
     lengths = np.array([22, 13, 0, 2], np.int32)
     q_lens = np.array([6, 1, 0, 2], np.int32)
     n_pages = s_n * pps + 1
@@ -214,11 +215,11 @@ def test_codec_encode_on_the_card_equals_the_cpu(dev):
     assert torch.equal(dscale.cpu(), scale)
 
 
-def _mla(dev, dtype, seed, d, d2):
+def _mla(dev, dtype, seed, d, d2, h=8):
     """``_paged``'s ragged block as MLA's absorbed attention: one latent
     KV head (pool (n_pages, rows, 1, d), the key and value pool at once)
     and a rope pool (n_pages, rows, 1, d2) scored against q2."""
-    q, c, _, table, lengths, q_lens, logical = _paged(dev, dtype, seed, d)
+    q, c, _, table, lengths, q_lens, logical = _paged(dev, dtype, seed, d, h)
     gen = torch.Generator(device=dev).manual_seed(seed)
     c = c[:, :, :1].contiguous()
     q2 = torch.randn((*q.shape[:3], d2), generator=gen, device=dev)
@@ -226,12 +227,24 @@ def _mla(dev, dtype, seed, d, d2):
     return q * d ** 0.5, c, q2, pe, table, lengths, q_lens, logical
 
 
-@pytest.mark.parametrize("d,d2", [(32, 8), (512, 64)])
+# MLA: the reduced deepseek's widths (16, 8), the test widths (32, 8) and
+# deepseek's (512, 64); head counts inside one 64-head block of the
+# kernel and across two (100, not a multiple of 64); a window that cuts
+# inside a page (logical 6) and inside a 16-key tile, with and without a
+# softcap
+_MLA_WIDTHS = [(16, 8), (32, 8), (512, 64)]
+_MLA_MASKS = [(0, 0.0), (4, 0.0), (9, 3.0)]
+
+
+@pytest.mark.parametrize("window,cap", _MLA_MASKS)
+@pytest.mark.parametrize("h", [8, 100])
+@pytest.mark.parametrize("d,d2", _MLA_WIDTHS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_mla_kernel_vs_plain(dev, dtype, d, d2):
+def test_mla_kernel_vs_plain(dev, dtype, d, d2, h, window, cap):
     q, c, q2, pe, table, lengths, q_lens, logical = _mla(dev, dtype, 11, d,
-                                                         d2)
-    kw = dict(scale=(d // 4 + d2) ** -0.5, page_size=logical)
+                                                         d2, h)
+    kw = dict(scale=(d // 4 + d2) ** -0.5, page_size=logical, window=window,
+              softcap_val=cap)
     before = (paged_mixed_attention.launches,
               paged_mixed_attention.mla_launches)
     got = paged_mixed_attention(q, c, c, table, lengths, q_lens, q2, pe,
@@ -246,14 +259,17 @@ def test_mla_kernel_vs_plain(dev, dtype, d, d2):
     torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
 
 
-@pytest.mark.parametrize("d,d2", [(32, 8), (512, 64)])
-def test_mla_codec_kernel_bit_identical_to_fp_on_decoded_pools(dev, d, d2):
+@pytest.mark.parametrize("window,cap", _MLA_MASKS)
+@pytest.mark.parametrize("h", [8, 100])
+@pytest.mark.parametrize("d,d2", _MLA_WIDTHS)
+def test_mla_codec_kernel_bit_identical_to_fp_on_decoded_pools(dev, d, d2, h,
+                                                               window, cap):
     q, c, q2, pe, table, lengths, q_lens, logical = _mla(
-        dev, torch.float32, 12, d, d2)
+        dev, torch.float32, 12, d, d2, h)
     (cc, cs), (pc, ps) = (kv_codec.encode(x, (-2, -1)) for x in (c, pe))
     cb = kv_codec.codebook(dev)
     cd, pd = decode_pool(cc, cs, cb), decode_pool(pc, ps, cb)
-    kw = dict(scale=0.1, page_size=logical)
+    kw = dict(scale=0.1, page_size=logical, window=window, softcap_val=cap)
     fp = paged_mixed_attention(q, cd, cd, table, lengths, q_lens, q2, pd,
                                **kw)
     want = paged_mixed_attention_plain(q, cc, cc, table, lengths, q_lens,
@@ -274,6 +290,61 @@ def test_mla_codec_kernel_bit_identical_to_fp_on_decoded_pools(dev, d, d2):
     assert torch.equal(poisoned, fp)
 
 
+def _mla_long(dev, seed, d, d2, h=100):
+    """A long ragged block (chunks of 40 and 23 tokens, a decode, an empty
+    slot): enough blocks that the kernel takes 64 query rows a block."""
+    rng = np.random.default_rng(seed)
+    s_n, qn, rows, logical = 4, 40, 8, 6
+    lengths = np.array([100, 13, 0, 60], np.int32)
+    q_lens = np.array([40, 1, 0, 23], np.int32)
+    pps = -(-int(lengths.max()) // logical)
+    n_pages = s_n * pps + 1
+    ids = iter(rng.permutation(np.arange(1, n_pages)))
+    table = np.zeros((s_n, pps), np.int32)
+    for s, ln in enumerate(lengths):
+        for j in range(-(-int(ln) // logical)):
+            table[s, j] = next(ids)
+    t = lambda a: torch.from_numpy(a).to(dev)
+    f32 = lambda *shape: t(rng.standard_normal(shape).astype(np.float32))
+    return (f32(s_n, qn, h, d), f32(n_pages, rows, 1, d), f32(s_n, qn, h, d2),
+            f32(n_pages, rows, 1, d2), t(table), t(lengths), t(q_lens),
+            logical)
+
+
+@pytest.mark.parametrize("window,cap", [(0, 0.0), (9, 3.0)])
+@pytest.mark.parametrize("d,d2", [(16, 8), (512, 64)])
+def test_mla_kernel_64_row_blocks(dev, d, d2, window, cap):
+    """Launches with many tokens take 64 query rows a block (decode-sized
+    ones 32): bf16 and f32 pools within 1e-4 of the plain version, the
+    codec bit-identical to the fp kernel on the decoded pools."""
+    q, c, q2, pe, table, lengths, q_lens, logical = _mla_long(dev, 17, d, d2)
+    assert mla_kernel_info("bfloat16", *q.shape[:3], d, d2)["rows"] == 64
+    assert mla_kernel_info("bfloat16", 4, 1, 100, d, d2)["rows"] == 32
+    kw = dict(scale=(d // 4 + d2) ** -0.5, page_size=logical, window=window,
+              softcap_val=cap)
+    for pool_c, pool_pe in ((c, pe), (c.to(torch.bfloat16),
+                                      pe.to(torch.bfloat16))):
+        got = paged_mixed_attention(q, pool_c, pool_c, table, lengths,
+                                    q_lens, q2, pool_pe, **kw)
+        want = paged_mixed_attention_plain(q, pool_c, pool_c, table, lengths,
+                                           q_lens, q2=q2, k2_pages=pool_pe,
+                                           **kw)
+        torch.cuda.synchronize()
+        rows = torch.arange(q.shape[1], device=dev)[None] < q_lens[:, None]
+        torch.testing.assert_close(got[rows], want[rows], atol=1e-4,
+                                   rtol=1e-4)
+    (cc, cs), (pc, ps) = (kv_codec.encode(x, (-2, -1)) for x in (c, pe))
+    cb = kv_codec.codebook(dev)
+    cd = decode_pool(cc, cs, cb)
+    fp = paged_mixed_attention(q, cd, cd, table, lengths, q_lens, q2,
+                               decode_pool(pc, ps, cb), **kw)
+    for dequant in ("gather", "onehot"):
+        got = paged_mixed_attention(q, cc, cc, table, lengths, q_lens, q2,
+                                    pc, cs, cs, ps, cb, dequant=dequant, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, fp), dequant
+
+
 def test_mla_wrapper_rejects_what_the_kernel_does_not_take(dev):
     q, c, q2, pe, table, lengths, q_lens, _ = _mla(dev, torch.float32, 13,
                                                    32, 8)
@@ -286,10 +357,20 @@ def test_mla_wrapper_rejects_what_the_kernel_does_not_take(dev):
     with pytest.raises(ValueError, match="exceeds 64"):
         paged_mixed_attention(*args, wide, torch.zeros(
             (*c.shape[:3], 96), device=dev))
-    with pytest.raises(ValueError, match="exceed 512"):
-        big = torch.zeros((*c.shape[:3], 544), device=dev)
-        paged_mixed_attention(torch.zeros((*q.shape[:3], 544), device=dev),
-                              big, big, table, lengths, q_lens)
+    big = torch.zeros((*c.shape[:3], 544), device=dev)
+    qbig = torch.zeros((*q.shape[:3], 544), device=dev)
+    with pytest.raises(ValueError, match="exceeds 512"):
+        paged_mixed_attention(qbig, big, big, table, lengths, q_lens, q2, pe)
+    with pytest.raises(ValueError, match="exceed 256"):   # GQA kernel
+        paged_mixed_attention(qbig, big, big, table, lengths, q_lens)
+    # KH = 2 with the second operand: not MLA's absorbed attention
+    c2, pe2 = c.expand(-1, -1, 2, -1).contiguous(), \
+        pe.expand(-1, -1, 2, -1).contiguous()
+    with pytest.raises(ValueError, match="one latent KV head"):
+        paged_mixed_attention(q, c2, c2, table, lengths, q_lens, q2, pe2)
+    with pytest.raises(ValueError, match="v_pages must be k_pages"):
+        paged_mixed_attention(q, c, c.clone(), table, lengths, q_lens, q2,
+                              pe)
 
 
 # --- binary kernels --------------------------------------------------------
