@@ -8,10 +8,12 @@ Run from the repository root on a machine with one NVIDIA GPU:
 It builds the port's CUDA kernels from ``src/repro_torch/csrc`` with nvcc
 (one nvcc per source, all started together) and drives two paths:
 
-* serving: holds the Huffman-decode and paged-attention kernels (fp and
-  int8 codec pools) against their plain PyTorch versions at serving
-  shapes, serves minitron-8b at its published widths (depth cut to 2
-  layers) through ``ServeEngine`` and ``Scheduler`` on the ``cuda_paged``
+* serving: holds the Huffman-decode and GQA paged-attention kernels (fp
+  and int8 codec pools; split TF32 on tensor cores; their registers,
+  spills and shared memory, TF32 and f32 bounds, event and device times
+  beside SDPA's) against their plain PyTorch versions at serving shapes,
+  serves minitron-8b at its published widths (depth cut to 2 layers)
+  through ``ServeEngine`` and ``Scheduler`` on the ``cuda_paged``
   backend, with fp pools and again with ``kv_codec="cluster"`` (int8 code
   pools decoded in the kernel), and checks that the kernels were launched
   by those runs, that every request completed, that a second run gives
@@ -65,7 +67,7 @@ from repro_torch.kernels.fused_decode_contraction import \
 from repro_torch.kernels.huffman_decode import (  # noqa: E402
     flat_table, huffman_decode, pack_bitplane_tables)
 from repro_torch.kernels.paged_attention import (  # noqa: E402
-    decode_pool, mla_kernel_info, paged_mixed_attention,
+    decode_pool, gqa_kernel_info, mla_kernel_info, paged_mixed_attention,
     paged_mixed_attention_plain)
 from repro_torch.launch.serve import (  # noqa: E402
     TOO_DEEP_FOR_ONE_CARD, codec_report, cut_depth, tiny_config)
@@ -133,6 +135,25 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 20) -> float:
+    """Mean device milliseconds per call: the CUDA kernels' own time under
+    torch.profiler, without the host time between launches that
+    ``time_ms`` also counts when a call is short."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA)
+    if not total:
+        fail("the profiler saw no CUDA kernel time")
+    return total / 1e3 / iters
 
 
 def bound_ms(nbytes: float, ops: float,
@@ -230,7 +251,9 @@ def _attn_inputs(dev, qn, q_lens, lengths, pps, gen, h=32, kh=8, d=128):
 def _attn_bytes_ops(q, k, table, lengths, q_lens, window, codec=False,
                     q2=None, k2=None, shared_kv=False):
     """Bytes every input read once + output written once, and f32 ops,
-    for what these inputs need (positions each slot's tokens can see).
+    for what these inputs need (positions each slot's tokens can see;
+    query rows of real tokens only, since rows ``i >= q_lens`` are never
+    read, while the whole output is written, its padding rows as zeros).
     ``codec``: ``k`` holds int8 codes, each visible (position, head, dim)
     element decoded once (one multiply), plus one f32 scale per visible
     position in each scale pool.  MLA: ``q2``/``k2`` add the second score
@@ -252,9 +275,10 @@ def _attn_bytes_ops(q, k, table, lengths, q_lens, window, codec=False,
         for i in range(ql):
             qp = first + i
             pairs += qp + 1 - (max(0, qp - window + 1) if window else 0)
-    nbytes = (q.numel() * 4 + kv_pos * kh * width * k.element_size()
-              + table.numel() * 4 + 2 * lengths.numel() * 4
-              + q.numel() * 4 + (0 if q2 is None else q2.numel() * 4))
+    tokens = int(q_lens.sum())
+    nbytes = (tokens * h * (d + d2) * 4
+              + kv_pos * kh * width * k.element_size()
+              + table.numel() * 4 + 2 * lengths.numel() * 4 + q.numel() * 4)
     # q.k, q2.k2, p.v, online-softmax update
     ops = pairs * h * (4 * d + 2 * d2 + 6)
     if codec:
@@ -263,9 +287,9 @@ def _attn_bytes_ops(q, k, table, lengths, q_lens, window, codec=False,
     return nbytes, ops
 
 
-def _sdpa_ms(q, k, v, table, lengths, q_lens, scale=1.0) -> float:
-    """One torch SDPA call over the gathered per-slot view (yardstick
-    only; the port never calls it)."""
+def _sdpa(q, k, v, table, lengths, q_lens, scale=1.0):
+    """One torch SDPA call over the gathered per-slot view, ready to time
+    (yardstick only; the port never calls it)."""
     import torch.nn.functional as F
     s_n, qn, h, d = q.shape
     kh = k.shape[2]
@@ -278,8 +302,12 @@ def _sdpa_ms(q, k, v, table, lengths, q_lens, scale=1.0) -> float:
     qpos = (lengths - q_lens)[:, None] + torch.arange(qn, device=q.device)
     mask = torch.arange(span, device=q.device)[None, None] <= qpos[..., None]
     mask = mask[:, None]
-    return time_ms(lambda: F.scaled_dot_product_attention(
-        qg, kg, vg, attn_mask=mask, scale=scale), iters=50)
+    return lambda: F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask,
+                                                  scale=scale)
+
+
+def _sdpa_ms(q, k, v, table, lengths, q_lens, scale=1.0) -> float:
+    return time_ms(_sdpa(q, k, v, table, lengths, q_lens, scale), iters=50)
 
 
 def _codec_attention(q, k, v, table, ln, ql, qn, dev) -> tuple:
@@ -332,15 +360,43 @@ def _codec_attention(q, k, v, table, ln, ql, qn, dev) -> tuple:
     decode_ms = time_ms(lambda: (decode_pool(kc, ks, cb),
                                  decode_pool(vc, vs, cb)), iters=20)
     lib_ms = _sdpa_ms(q, kd, vd, table, ln, ql)
+    dev_ms = device_ms(lambda: paged_mixed_attention(q, kc, vc, table, ln, ql,
+                                                     **kw))
+    lib_dev_ms = device_ms(_sdpa(q, kd, vd, table, ln, ql))
     nbytes, ops = _attn_bytes_ops(q, kc, table, ln, ql, 0, codec=True)
-    bms, by = bound_ms(nbytes, ops)
-    print(f"  codec Q={qn} bounds: bytes {nbytes / HBM_BYTES_PER_S * 1e3:.4f}"
-          f" ms ({nbytes} B: int8 codes, scale rows, q, out, table), "
-          f"operations {ops / F32_OPS_PER_S * 1e3:.4f} ms ({ops} f32 ops)")
-    return worst, (ms, plain_ms, lib_ms, bms, by, decode_ms, onehot_ms)
+    bms, by, f32_bms = _attn_bounds("codec", qn, nbytes, ops)
+    return worst, (ms, plain_ms, lib_ms, bms, by, decode_ms, onehot_ms,
+                   f32_bms, dev_ms, lib_dev_ms)
+
+
+def _attn_bounds(label, qn, nbytes, ops) -> tuple:
+    """Print and return the attention kernel's bound at the TF32
+    tensor-core rate (where its products run; the split's extra MMAs are
+    the kernel's cost, not the function's) and at the f32 CUDA-core rate
+    -> (TF32 bound ms, what sets it, f32 bound ms)."""
+    bms, by = bound_ms(nbytes, ops, ops_per_s=TF32_OPS_PER_S)
+    f32_bms, _ = bound_ms(nbytes, ops)
+    print(f"  {label} Q={qn} bounds: bytes "
+          f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms ({nbytes} B), operations "
+          f"{ops / TF32_OPS_PER_S * 1e3:.4f} ms at the TF32 tensor-core rate,"
+          f" {ops / F32_OPS_PER_S * 1e3:.4f} ms at the f32 CUDA-core rate "
+          f"({ops} ops): bound {bms:.4f} ms (TF32, {by}), {f32_bms:.4f} ms "
+          f"(f32)")
+    return bms, by, f32_bms
 
 
 def phase_attention(dev) -> list:
+    for qn in (64, 1):
+        for pools in ("bfloat16", "float32", "gather", "onehot"):
+            info = gqa_kernel_info(pools, SERVE_BATCH, qn, 32, 8, 128, 128)
+            print(f"paged_attention (GQA) kernel at Q={qn} ({pools} pools): "
+                  f"{info['rows']} query rows a block, "
+                  f"{info['registers']} registers a thread, "
+                  f"{info['local_bytes']} local (spill) bytes, "
+                  f"{info['smem_bytes']} B of dynamic shared memory a "
+                  f"block at H=32, KH=8, D=Dv=128")
+            if info["local_bytes"]:
+                fail(f"the GQA kernel ({pools}) spills to local memory")
     gen = torch.Generator(device=dev).manual_seed(1)
     pps = -(-(int(SERVE_PROMPTS.max()) + SERVE_GEN) // SERVE_PAGE)
     span = pps * SERVE_PAGE
@@ -380,20 +436,31 @@ def phase_attention(dev) -> list:
         plain_ms = time_ms(lambda: paged_mixed_attention_plain(
             q, k, v, table, ln, ql, **kw), iters=10)
         lib_ms = _sdpa_ms(q, k, v, table, ln, ql)
-        bms, by = bound_ms(*_attn_bytes_ops(q, k, table, ln, ql, 0))
-        timing[qn] = (ms, plain_ms, lib_ms, bms, by)
+        dev_ms = device_ms(lambda: paged_mixed_attention(q, k, v, table, ln,
+                                                         ql, **kw))
+        lib_dev_ms = device_ms(_sdpa(q, k, v, table, ln, ql))
+        bms, by, fbms = _attn_bounds("fp", qn, *_attn_bytes_ops(
+            q, k, table, ln, ql, 0))
+        timing[qn] = (ms, plain_ms, lib_ms, bms, by, fbms, dev_ms, lib_dev_ms)
         print(f"paged_mixed_attention Q={qn} (S={SERVE_BATCH}, H=32, KH=8, "
               f"D=128, page {SERVE_PAGE}, {pps} pages/slot, bf16 pools, "
               f"q_lens {q_lens}): kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-              f"ms, sdpa {lib_ms:.4f} ms, bound {bms:.4f} ms ({by})")
+              f"ms, sdpa {lib_ms:.4f} ms ({ms / lib_ms:.2f}x kernel/sdpa); "
+              f"device time kernel {dev_ms:.4f} ms, sdpa {lib_dev_ms:.4f} ms "
+              f"({dev_ms / lib_dev_ms:.2f}x); bound {bms:.4f} ms ({by}, "
+              f"TF32), f32 bound {fbms:.4f} ms")
         err, ctiming[qn] = _codec_attention(q, k, v, table, ln, ql, qn, dev)
         cworst = max(cworst, err)
-        cms, cplain, clib, cbms, cby, cdec, conehot = ctiming[qn]
+        (cms, cplain, clib, cbms, cby, cdec, conehot, cfbms, cdev,
+         clibdev) = ctiming[qn]
         print(f"paged_mixed_attention codec Q={qn} (same shapes, int8 code "
               f"pools + f32 scales): kernel {cms:.4f} ms (onehot "
               f"{conehot:.4f} ms), plain {cplain:.4f} ms, sdpa on the "
-              f"decoded f32 view {clib:.4f} ms + decode {cdec:.4f} ms, "
-              f"bound {cbms:.4f} ms ({cby})")
+              f"decoded f32 view {clib:.4f} ms ({cms / clib:.2f}x "
+              f"kernel/sdpa) + decode {cdec:.4f} ms ({cms / (clib + cdec):.2f}"
+              f"x kernel/(sdpa + decode)); device time kernel {cdev:.4f} ms, "
+              f"sdpa {clibdev:.4f} ms ({cdev / clibdev:.2f}x); bound "
+              f"{cbms:.4f} ms ({cby}, TF32), f32 bound {cfbms:.4f} ms")
     print(f"paged_mixed_attention: max abs err {worst:.3e} <= {ATTN_TOL} "
           f"on rows i < q_lens over Q {{64, 1}} x window {{0, 100}} x "
           f"softcap {{0, {ATTN_SOFTCAP}}}; poisoned page 0 inert")
@@ -401,30 +468,43 @@ def phase_attention(dev) -> list:
           f"{ATTN_TOL} vs plain over the same grid; gather and onehot "
           f"bit-identical to the fp kernel on the decoded f32 pools; "
           f"poisoned page-0 codes inert")
-    ms, plain_ms, lib_ms, bms, by = timing[64]
+    ms, plain_ms, lib_ms, bms, by, fbms, dev_ms, lib_dev_ms = timing[64]
     fp = {"name": "paged_mixed_attention", "route": "cuda",
           "source": "src/repro_torch/csrc/paged_attention.cu",
           "replaces": "src/repro/kernels/paged_attention.py:239",
           "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-          "bound_ms": bms, "bound_by": by, "library_ms": lib_ms,
-          "shape": "S=4 Q=64 H=32 KH=8 D=128 page=16 bf16",
+          "bound_ms": bms, "bound_by": by, "bound_f32_ms": fbms,
+          "library_ms": lib_ms, "device_ms": dev_ms,
+          "library_device_ms": lib_dev_ms,
+          "shape": "S=4 Q=64 H=32 KH=8 D=128 page=16 bf16 (bound_ms at the "
+                   "TF32 tensor-core rate; device_ms: profiler kernel time)",
           "decode_q1": {"ms": timing[1][0], "plain_ms": timing[1][1],
                         "library_ms": timing[1][2],
-                        "bound_ms": timing[1][3]}}
-    ms, plain_ms, lib_ms, bms, by, dec_ms, onehot_ms = ctiming[64]
+                        "bound_ms": timing[1][3],
+                        "bound_f32_ms": timing[1][5],
+                        "device_ms": timing[1][6],
+                        "library_device_ms": timing[1][7]}}
+    (ms, plain_ms, lib_ms, bms, by, dec_ms, onehot_ms, fbms, dev_ms,
+     lib_dev_ms) = ctiming[64]
     codec = {"name": "paged_mixed_attention_codec", "route": "cuda",
              "variant_of": "paged_mixed_attention",
              "source": "src/repro_torch/csrc/paged_attention.cu",
              "replaces": "src/repro/kernels/paged_attention.py:239",
              "max_abs_err": cworst, "ms": ms, "plain_ms": plain_ms,
-             "bound_ms": bms, "bound_by": by, "library_ms": lib_ms,
+             "bound_ms": bms, "bound_by": by, "bound_f32_ms": fbms,
+             "library_ms": lib_ms, "device_ms": dev_ms,
+             "library_device_ms": lib_dev_ms,
              "library_decode_ms": dec_ms, "onehot_ms": onehot_ms,
              "shape": "S=4 Q=64 H=32 KH=8 D=128 page=16 int8 codes + f32 "
                       "scales (library_ms: SDPA on the decoded f32 view, "
-                      "its decode in library_decode_ms)",
+                      "its decode in library_decode_ms; bound_ms at the "
+                      "TF32 tensor-core rate)",
              "decode_q1": {"ms": ctiming[1][0], "plain_ms": ctiming[1][1],
                            "library_ms": ctiming[1][2],
                            "bound_ms": ctiming[1][3],
+                           "bound_f32_ms": ctiming[1][7],
+                           "device_ms": ctiming[1][8],
+                           "library_device_ms": ctiming[1][9],
                            "library_decode_ms": ctiming[1][5]}}
     return [fp, codec]
 

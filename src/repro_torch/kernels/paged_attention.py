@@ -3,15 +3,13 @@
 Replaces the Pallas TPU kernel ``repro/kernels/paged_attention.py::
 paged_mixed_attention`` (``_kernel``, ``_dequant``) for fp page pools, for
 the int8 KV-page codec (``kv_codec="cluster"``) and for the MLA second
-score operand.  Two kernels: ``csrc/paged_attention.cu`` for GQA (one warp
-per (slot, query token, head), lanes splitting the head dim, an online
-softmax over the positions the token may see, walked through the slot's
-page table; codec pools decoded in-kernel from a codebook staged in shared
-memory) and ``csrc/paged_mla_attention.cu`` for MLA (one block per (slot,
-query token, 64 or 32 heads), each 16-key tile of latent rows staged and
-decoded once per block, both products on tensor cores in split TF32).
-The source notes say what bounds each on the card and how it stands
-against that.
+score operand.  Two kernels, both with their products on tensor cores in
+split TF32 and each 16-key tile staged, and decoded for codec pools, once
+per block: ``csrc/paged_attention.cu`` for GQA (one block per (slot, KV
+head, tile of query tokens), its 64, 32 or 16 rows the tokens x the G
+query heads that read that KV head) and ``csrc/paged_mla_attention.cu``
+for MLA (one block per (slot, query token, 64 or 32 heads)).  The source
+notes say what bounds each on the card and how it stands against that.
 
 Layout contract (shared with ``runtime.scheduler.SlotPool``), as in the
 reference: slot ``s`` contributes ``q_lens[s]`` tokens at positions
@@ -39,6 +37,7 @@ Not ported (it raises): ``pages_per_step > 1``, a TPU launch knob.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -48,10 +47,10 @@ NEG_INF = -1e30
 # the kernel's pool codes: fp pools by dtype, codec pools by dequant mode
 _POOL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _DEQUANT = {"gather": 2, "onehot": 3}
-# elements of D and Dv one lane of the GQA kernel holds (a template
-# parameter)
-_PER_LANE = (4, 8)
-_MAX_HEAD_DIM = 32 * _PER_LANE[-1]
+# the GQA kernel's widths (D and Dv), and its query rows a block: the
+# widest choice whose launch has a block for every SM of the card
+_MAX_HEAD_DIM = 256
+_GQA_ROWS = (64, 32, 16)
 # the MLA kernel's widths: latent D (key and value) and rope D2
 _MLA_MAX_D, _MLA_MAX_D2 = 512, 64
 
@@ -243,23 +242,48 @@ def paged_mixed_attention(q, k_pages, v_pages, table, lengths, q_lens,
     else:
         if max(d, dv) > _MAX_HEAD_DIM:
             raise ValueError(f"head dims {d}/{dv} exceed {_MAX_HEAD_DIM}")
-        per_lane = next(n for n in _PER_LANE if max(d, dv) <= 32 * n)
         lib = _build.load("paged_attention")
         fn = lib.paged_attention_launch
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] \
-            + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 11 \
-            + [ctypes.c_float] * 2 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+        if fn.argtypes is None:        # once: a decode step's launch is short
+            fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] \
+                + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 11 \
+                + [ctypes.c_float] * 2 + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
         ptr = (lambda t: t.data_ptr()) if codec else (lambda t: None)
         code = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                   pools, ptr(k_scales), ptr(v_scales), ptr(codebook),
                   table.data_ptr(), lengths.data_ptr(), q_lens.data_ptr(),
-                  out.data_ptr(), s_n, qn, h, kh, d, dv, per_lane, page,
-                  logical, table.shape[1], int(window), float(softcap_val),
+                  out.data_ptr(), s_n, qn, h, kh, d, dv,
+                  _gqa_rows(s_n, qn, h, kh, q.device.index), page, logical,
+                  table.shape[1], int(window), float(softcap_val),
                   float(scale), stream)
         _build.check(lib, "paged_attention", code)
     paged_mixed_attention.launches += 1
     return out
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: int | None = None) -> int:
+    """Streaming multiprocessors of card ``device`` (the current one when
+    None)."""
+    if device is None:
+        device = torch.cuda.current_device()
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _gqa_rows(n_slots: int, qn: int, h: int, kh: int,
+              device: int | None = None) -> int:
+    """The GQA kernel's query rows a block (tokens x the query heads of one
+    KV head): 64 when a launch of ``n_slots`` x ``qn`` tokens then has a
+    block for every SM of card ``device``, else 32 under the same rule,
+    else 16 (a decode step's few tokens spread over more blocks)."""
+    g, sms = h // kh, sm_count(device)
+    for rows in _GQA_ROWS[:-1]:
+        hb = min(g, rows)
+        blocks = n_slots * kh * -(-qn // (rows // hb)) * -(-g // hb)
+        if blocks >= sms:
+            return rows
+    return _GQA_ROWS[-1]
 
 
 def _same_tensor(a, b) -> bool:
@@ -329,6 +353,26 @@ def mla_kernel_info(pools: str, n_slots: int, qn: int, h: int, d: int,
                     *(ctypes.byref(v) for v in vals)))
     return dict(zip(("rows", "registers", "local_bytes", "smem_bytes"),
                     (v.value for v in vals)))
+
+
+def gqa_kernel_info(pools: str, n_slots: int, qn: int, h: int, kh: int,
+                    d: int, dv: int) -> dict:
+    """The GQA kernel's query rows a block, registers and local (spill)
+    bytes a thread, and dynamic shared memory a block, for a launch of
+    ``n_slots`` x ``qn`` tokens of ``h`` query heads over ``kh`` KV heads
+    and ``pools`` ("float32", "bfloat16", "gather" or "onehot") of widths
+    ``d`` (key) and ``dv`` (value), on the current card."""
+    code = {"float32": 0, "bfloat16": 1, **_DEQUANT}[pools]
+    rows = _gqa_rows(n_slots, qn, h, kh)
+    lib = _build.load("paged_attention")
+    fn = lib.paged_attention_info
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3
+    fn.restype = ctypes.c_int
+    vals = [ctypes.c_int(0) for _ in range(3)]
+    _build.check(lib, "paged_attention",
+                 fn(code, rows, d, dv, *(ctypes.byref(v) for v in vals)))
+    return dict(rows=rows, **dict(zip(
+        ("registers", "local_bytes", "smem_bytes"), (v.value for v in vals))))
 
 
 # kernel launches (not plain calls): all of them, and those with the MLA

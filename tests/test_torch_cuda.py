@@ -19,9 +19,11 @@ from repro_torch.kernels.binary_contraction import binary_contraction
 from repro_torch.kernels.fused_decode_contraction import fused_decode_matmul
 from repro_torch.kernels.huffman_decode import flat_table, huffman_decode
 from repro_torch.kernels.paged_attention import (decode_pool,
+                                                 gqa_kernel_info,
                                                  mla_kernel_info,
                                                  paged_mixed_attention,
-                                                 paged_mixed_attention_plain)
+                                                 paged_mixed_attention_plain,
+                                                 sm_count)
 from repro_torch.runtime.decode_cache import DecodeTileCache
 from repro_torch.runtime.weight_store import WeightStore
 
@@ -202,6 +204,130 @@ def test_codec_kernel_never_reads_sink_or_padding(dev):
     torch.cuda.synchronize()
     assert torch.isfinite(poisoned).all()
     assert torch.equal(clean, poisoned)
+
+
+# The GQA kernel's rows a block are tokens x the G heads of one KV head;
+# 64 rows when the launch has a block for every SM, else 32, else 16.
+_GQA_ROWS = (64, 32, 16)
+_GQA_GROUPS = {1: (4, 4), 2: (8, 4), 4: (8, 2), 6: (12, 2)}
+_GQA_MASKS = [(0, 0.0), (9, 3.0)]
+
+
+def _gqa_rows_case(rows):
+    """(H, KH, D, Q, q_lens, lengths) of a launch that takes ``rows`` rows
+    a block on this card (H100 SXM, 132 SMs: Q 80 and 64).  At H=32,
+    KH=8 and 4 slots a launch has 32 blocks per 16 tokens at 64 rows and
+    per 8 at 32.  Chunks span several token tiles of a block; the window
+    of 9 starts inside a 16-key tile."""
+    n = (sm_count() - 1) // 32
+    if rows == 64:
+        qn = 16 * (n + 1)
+        return 32, 8, 40, qn, [qn, 1, 0, 50], [qn + 20, 13, 0, 70]
+    if rows == 32:
+        qn = 16 * n
+        return 32, 8, 128, qn, [qn, 37, 0, 1], [qn + 26, 40, 0, 20]
+    return 8, 2, 128, 6, [6, 1, 0, 2], [22, 13, 0, 2]
+
+
+def _gqa(dev, seed, h, kh, d, qn, q_lens, lengths):
+    """A ragged block over f32 pools whose rows 6..7 are layout padding
+    (logical page 6 of 8 rows); table entries past a slot's length hit
+    the page-0 sink."""
+    rng = np.random.default_rng(seed)
+    s_n, rows, logical = len(q_lens), 8, 6
+    pps = -(-max(lengths) // logical)
+    n_pages = s_n * pps + 1
+    ids = iter(rng.permutation(np.arange(1, n_pages)))
+    table = np.zeros((s_n, pps), np.int32)
+    for s, ln in enumerate(lengths):
+        for j in range(-(-ln // logical)):
+            table[s, j] = next(ids)
+    t = lambda a: torch.from_numpy(np.asarray(a)).to(dev)
+    f32 = lambda *shape: rng.standard_normal(shape).astype(np.float32)
+    return (t(f32(s_n, qn, h, d) * d ** -0.5), t(f32(n_pages, rows, kh, d)),
+            t(f32(n_pages, rows, kh, d)), t(table),
+            t(np.int32(lengths)), t(np.int32(q_lens)), logical)
+
+
+def _check_gqa(dev, case, window, cap):
+    """f32 and bf16 pools within the fp tolerance of the plain version;
+    the codec (gather and onehot) bit-identical to the fp kernel on the
+    decoded f32 pools and within 1e-4 of its plain version; poisoned sink
+    and padding rows inert for bf16 and codec pools."""
+    q, k, v, table, lengths, q_lens, logical = case
+    kw = dict(window=window, softcap_val=cap, page_size=logical)
+    for dtype in (torch.float32, torch.bfloat16):
+        kd, vd = k.to(dtype, copy=True), v.to(dtype, copy=True)
+        before = paged_mixed_attention.launches
+        got = paged_mixed_attention(q, kd, vd, table, lengths, q_lens, **kw)
+        want = paged_mixed_attention_plain(q, kd, vd, table, lengths, q_lens,
+                                           **kw)
+        torch.cuda.synchronize()
+        assert paged_mixed_attention.launches == before + 1
+        torch.testing.assert_close(got, want, atol=2e-5, rtol=1e-4)
+        kd[0], vd[0], kd[:, logical:], vd[:, logical:] = 3e4, -3e4, 3e4, -3e4
+        poisoned = paged_mixed_attention(q, kd, vd, table, lengths, q_lens,
+                                         **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(poisoned, got), dtype
+    (kc, ks), (vc, vs) = (kv_codec.encode(x, (-2, -1)) for x in (k, v))
+    cb = kv_codec.codebook(dev)
+    fp = paged_mixed_attention(q, decode_pool(kc, ks, cb),
+                               decode_pool(vc, vs, cb), table, lengths,
+                               q_lens, **kw)
+    want = paged_mixed_attention_plain(q, kc, vc, table, lengths, q_lens, ks,
+                                       vs, cb, **kw)
+    ckw = dict(k_scales=ks, v_scales=vs, codebook=cb, **kw)
+    for dequant in ("gather", "onehot"):
+        got = paged_mixed_attention(q, kc, vc, table, lengths, q_lens,
+                                    dequant=dequant, **ckw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, fp), dequant
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    for codes, scales, val in ((kc, ks, 127), (vc, vs, -127)):
+        codes[0], codes[:, logical:] = val, val
+        scales[0], scales[:, logical:] = 1e6, 1e6
+    poisoned = paged_mixed_attention(q, kc, vc, table, lengths, q_lens,
+                                     **ckw)
+    torch.cuda.synchronize()
+    assert torch.equal(poisoned, fp)
+
+
+@pytest.mark.parametrize("window,cap", _GQA_MASKS)
+@pytest.mark.parametrize("rows", _GQA_ROWS)
+def test_gqa_kernel_rows_per_block(dev, rows, window, cap):
+    h, kh, d, qn, q_lens, lengths = _gqa_rows_case(rows)
+    assert gqa_kernel_info("bfloat16", len(q_lens), qn, h, kh, d,
+                           d)["rows"] == rows
+    _check_gqa(dev, _gqa(dev, rows, h, kh, d, qn, q_lens, lengths), window,
+               cap)
+
+
+@pytest.mark.parametrize("window,cap", _GQA_MASKS)
+@pytest.mark.parametrize("d", [40, 128, 256])
+@pytest.mark.parametrize("g", list(_GQA_GROUPS))
+def test_gqa_kernel_groups_and_widths(dev, g, d, window, cap):
+    """G = H / KH of 1, 2, 4 and 6 query heads a KV head (6 leaves rows
+    of a block empty), at head widths 40 (not a power of two), 128 and
+    256 (two warps a row tile, each half of Dv)."""
+    h, kh = _GQA_GROUPS[g]
+    _check_gqa(dev, _gqa(dev, 10 * g + d, h, kh, d, 20, [20, 1, 0, 2],
+                         [45, 13, 0, 2]), window, cap)
+
+
+def test_gqa_kernel_info_reports_no_spills(dev):
+    """Every instantiation (four pool kinds) at every rows-a-block choice
+    and both column layouts (Dv <= 128, Dv = 256) keeps its registers:
+    no local (spill) bytes, shared memory within the 227 KB a block may
+    have."""
+    for pools in ("float32", "bfloat16", "gather", "onehot"):
+        for rows in _GQA_ROWS:
+            h, kh, _, qn, q_lens, _ = _gqa_rows_case(rows)
+            for d in (40, 128, 256):
+                info = gqa_kernel_info(pools, len(q_lens), qn, h, kh, d, d)
+                assert info["rows"] == rows
+                assert info["local_bytes"] == 0, (pools, rows, d, info)
+                assert 0 < info["smem_bytes"] <= 232448, info
 
 
 def test_codec_encode_on_the_card_equals_the_cpu(dev):
