@@ -26,10 +26,14 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` with nvcc
   one dense-MLP and one MoE block) the same way, with fp pools and with
   the codec; a small minitron and a small deepseek served on the card
   give the CPU's tokens, with and without the codec;
-* the paper's BNN: holds the binarize-pack, xnor-popcount contraction and
-  fused Huffman-decode + contraction kernels against their plain versions
-  bit for bit at every ReActNet-A block shape at batch 32 (and ragged
-  shapes), then classifies 32 images of 224x224 through ReActNet-A at
+* the paper's BNN: times the int8 and binary mma.sync probe, prints the
+  fused kernel's registers, spills and shared memory, holds the
+  binarize-pack ((M, K) rows and 3x3 patches straight from NHWC),
+  xnor-popcount contraction and fused Huffman-decode + binary
+  tensor-core contraction kernels against their plain versions bit for
+  bit at every ReActNet-A block shape at batch 32 (and ragged shapes; the
+  patches also against im2col + binarize-pack, timed beside them), then
+  classifies 32 images of 224x224 through ReActNet-A at
   full width in ``ste``, ``packed`` and ``compressed`` conv modes,
   checks identical logits and each kernel's launches, profiles the
   compressed forward, and checks a small ReActNet's logits on card and
@@ -38,7 +42,8 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` with nvcc
 The last two lines of standard output are one JSON object per kernel
 (``{"kernels": [...]}``) and ``{"ok": true, "device": {...}}``.  Any
 failure exits non-zero before them, as does a machine without a GPU.
-Peak rates for the roofline bounds are the H100 SXM data-sheet numbers.
+Peak rates for the roofline bounds are the H100 SXM data-sheet numbers,
+and for binary MMAs 8x the int8 one (``B1_TC_OPS_PER_S``).
 """
 
 from __future__ import annotations
@@ -59,16 +64,17 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.core import bitpack  # noqa: E402
 from repro_torch.kernels import _build, kv_codec, ops, ref  # noqa: E402
-from repro_torch.kernels.binarize_pack import binarize_pack  # noqa: E402
+from repro_torch.kernels.binarize_pack import (  # noqa: E402
+    binarize_pack, binarize_pack_patches)
 from repro_torch.kernels.binary_contraction import \
     binary_contraction  # noqa: E402
-from repro_torch.kernels.fused_decode_contraction import \
-    fused_decode_matmul  # noqa: E402
+from repro_torch.kernels.fused_decode_contraction import (  # noqa: E402
+    fused_decode_matmul, fused_kernel_info, fused_plan, mma_rate)
 from repro_torch.kernels.huffman_decode import (  # noqa: E402
     flat_table, huffman_decode, pack_bitplane_tables)
 from repro_torch.kernels.paged_attention import (  # noqa: E402
     decode_pool, gqa_kernel_info, mla_kernel_info, paged_mixed_attention,
-    paged_mixed_attention_plain)
+    paged_mixed_attention_plain, sm_count)
 from repro_torch.launch.serve import (  # noqa: E402
     TOO_DEEP_FOR_ONE_CARD, codec_report, cut_depth, tiny_config)
 from repro_torch.models import reactnet as rn  # noqa: E402
@@ -87,6 +93,13 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # CUDA C++ Programming Guide's arithmetic-instruction throughput table), a
 # quarter of the int32 rate: 132 SMs x 16 x 1.98 GHz boost
 POPC_OPS_PER_S = 132 * 16 * 1.98e9
+INT8_TC_OPS_PER_S = 1979e12      # H100 SXM tensor cores, int8 dense (a
+#                                  multiply-accumulate counted as 2)
+# binary (b1 .and.popc) tensor-core rate: not on the data sheet; the
+# m16n8k256 b1 MMA issues at the s8 m16n8k32 one's rate with 8x its k
+# (``_fused_info``'s probe on the H100: 8.06x the s8 ops rate), so 8x the
+# int8 dense peak
+B1_TC_OPS_PER_S = 8 * INT8_TC_OPS_PER_S
 DECODE_OPS_PER_CODE = 25         # integer ops per decoded code (see .cuh)
 ATTN_TOL = 1e-4                  # kernel vs plain, bf16 pools: both score
 #                                  in f32 from the same bf16 values, so they
@@ -145,15 +158,42 @@ def device_ms(fn, iters: int = 20) -> float:
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    for _ in range(3):      # a profiling session now and then sees nothing
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA)
+        if total:
+            return total / 1e3 / iters
+    fail("the profiler saw no CUDA kernel time in three sessions")
+
+
+def graph_ms(fn, iters: int = 20) -> float:
+    """Mean milliseconds per call of ``fn`` replayed from a CUDA graph of
+    ``iters`` calls: the kernels' own time, without the wrapper's host
+    time between launches that ``time_ms`` counts when a call is short
+    (and without the profiler, which now and then loses short kernels)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
         for _ in range(iters):
             fn()
-        torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA)
-    if not total:
-        fail("the profiler saw no CUDA kernel time")
-    return total / 1e3 / iters
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / (3 * iters)
 
 
 def bound_ms(nbytes: float, ops: float,
@@ -996,12 +1036,20 @@ class _KernelSum:
 
     def __init__(self):
         self.ms = self.plain_ms = self.lib_ms = self.lib_f32_ms = 0.0
-        self.t_bytes = self.t_ops = self.bound_ms = 0.0
+        self.t_bytes = self.t_ops = self.bound_ms = self.popc_ms = 0.0
+        self.int8_ms = 0.0
+        self.graph_ms = 0.0
         self.launches = 0
 
-    def add(self, ms, plain_ms, nbytes, t_ops, lib=(0.0, 0.0)):
-        """One launch; ``t_ops`` in seconds -> the launch's bound in ms."""
+    def add(self, fn, plain_ms, nbytes, t_ops, lib=(0.0, 0.0)):
+        """One launch of ``fn``, timed by CUDA events over eager calls and
+        over a CUDA graph's replay (the event time of a short launch is the
+        wrapper's host time); ``t_ops`` in seconds -> the launch's bound in
+        ms."""
         tb, to = nbytes / HBM_BYTES_PER_S * 1e3, t_ops * 1e3
+        ms = time_ms(fn, iters=20)
+        self.last_graph_ms = graph_ms(fn)
+        self.graph_ms += self.last_graph_ms
         self.ms += ms
         self.plain_ms += plain_ms
         self.lib_ms += lib[0]
@@ -1010,11 +1058,13 @@ class _KernelSum:
         self.t_ops += to
         self.bound_ms += max(tb, to)
         self.launches += 1
+        self.last_bound = max(tb, to)
         return max(tb, to)
 
     def row(self, name, source, replaces, library):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "max_abs_err": 0.0, "ms": self.ms,
+                "graph_ms": self.graph_ms,
                 "plain_ms": self.plain_ms, "bound_ms": self.bound_ms,
                 "bound_by": "bytes" if self.t_bytes >= self.t_ops
                 else "operations",
@@ -1040,10 +1090,42 @@ def _time_pack(acc, x, label):
     got = binarize_pack(x)
     _same(f"binarize_pack {label}", got, ref.binarize_pack(x))
     m, k = x.shape
-    acc.add(time_ms(lambda: binarize_pack(x), iters=20),
+    acc.add(lambda: binarize_pack(x),
             time_ms(lambda: ref.binarize_pack(x), iters=1, warmup=1),
             m * k * 4 + got.numel() * 4, m * k / F32_OPS_PER_S)
     return got
+
+
+def _time_patches(acc, x, stride, label):
+    """The patch kernel against its plain version and against the old path
+    (f32 im2col columns + the (M, K) kernel), bit for bit, each timed."""
+    got = binarize_pack_patches(x, stride)
+    _same(f"binarize_pack_patches {label}", got,
+          ref.binarize_pack_patches(x, stride))
+
+    def old():
+        return binarize_pack(ops._im2col_signs(x, stride)[0])
+
+    _same(f"binarize_pack_patches {label} vs im2col + binarize_pack", got,
+          old())
+    old_ms = time_ms(old, iters=5)
+    acc.add(lambda: binarize_pack_patches(x, stride),
+            time_ms(lambda: ref.binarize_pack_patches(x, stride), iters=1,
+                    warmup=1),
+            x.numel() * 4 + got.numel() * 4, x.numel() / F32_OPS_PER_S,
+            lib=(old_ms, 0.0))
+    return got
+
+
+def _mma_bounds(acc, m, n, kw):
+    """The op bound in seconds of a +-1 product of M x N outputs over KW
+    packed words on the binary tensor cores (M*N*KW*32 multiply-accumulates,
+    2 ops each), the fastest way the card has; its int8 tensor-core and
+    __popc (M*N*KW popcounts) bounds are added to ``acc`` beside it."""
+    macs = m * n * kw * 32
+    acc.int8_ms += macs * 2 / INT8_TC_OPS_PER_S * 1e3
+    acc.popc_ms += m * n * kw / POPC_OPS_PER_S * 1e3
+    return macs * 2 / B1_TC_OPS_PER_S
 
 
 def _time_contraction(acc, xw, ww, k_true, xs, ws, label):
@@ -1056,11 +1138,11 @@ def _time_contraction(acc, xw, ww, k_true, xs, ws, label):
     lib = torch._int_mm(xi, wi)
     _same(f"torch._int_mm yardstick {label}", got, lib)
     (m, kw), n = xw.shape, ww.shape[0]
-    bms = acc.add(time_ms(lambda: binary_contraction(xw, ww, k_true=k_true),
-                          iters=20),
+    t_tc = _mma_bounds(acc, m, n, kw)
+    bms = acc.add(lambda: binary_contraction(xw, ww, k_true=k_true),
                   time_ms(lambda: ref.popcount_dot(xw, ww, k_true), iters=1,
                           warmup=1),
-                  (m + n) * kw * 4 + m * n * 4, m * n * kw / POPC_OPS_PER_S,
+                  (m + n) * kw * 4 + m * n * 4, t_tc,
                   lib=(time_ms(lambda: torch._int_mm(xi, wi), iters=20),
                        time_ms(lambda: xs @ ws.T, iters=20)))
     return got, bms
@@ -1079,30 +1161,68 @@ def _cudnn_conv_err(cin, stride, side, gen, dev) -> float:
     return float((conv - exact).abs().max())
 
 
+def _fused_info(comp) -> None:
+    """The slab kernel's registers, spills and shared memory at each codes
+    value and at ReActNet-A's smallest and largest slabs; the probe of the
+    int8 and binary MMAs' rates (why the kernel runs the binary one), at
+    the kernel's two blocks an SM."""
+    sms = sm_count(0)
+    s8, b1 = mma_rate("s8", 2 * sms), mma_rate("b1", 2 * sms)
+    print(f"mma.sync probe (2 blocks of 8 warps an SM, independent MMAs "
+          f"from registers): m16n8k32 s8 {s8:.1f} Tops/s "
+          f"({s8 / INT8_TC_OPS_PER_S * 1e12 * 100:.1f}% of the int8 dense "
+          f"peak); m16n8k256 b1 .and.popc {b1:.1f} Tops/s (x{b1 / s8:.2f}; "
+          f"two-bit multiply-accumulates, 8x the k of an s8 MMA an "
+          f"instruction)")
+    for codes in (8, 16, 32):
+        for chunked in (False, True):
+            info = fused_kernel_info(codes, chunked)
+            print(f"fused_decode_matmul kernel (codes {codes}, bn "
+                  f"{4 * codes}, {'chunked' if chunked else 'whole'} slab): "
+                  f"{info['registers']} registers a thread, "
+                  f"{info['local_bytes']} local (spill) bytes")
+    for i in (0, len(comp) - 1):
+        words, _, meta = comp[i]
+        cin, _, _, side = _rn_blocks()[i]
+        plan = fused_plan(RN_BATCH * side * side, *words.shape[:3],
+                          meta["codes"], sms)
+        print(f"  block {i}: grid {plan.m_splits} x {words.shape[0]} blocks "
+              f"of {plan.bm} rows, slab {plan.slab_tiles} of "
+              f"{words.shape[1]} tiles, {plan.smem_bytes} B of dynamic "
+              f"shared memory a block, {16 if plan.vec else 4}-byte "
+              f"activation copies")
+
+
 def phase_binary_kernels(dev, comp) -> list:
-    """The three BNN kernels against their plain versions, bit for bit,
-    at the shapes one ReActNet-A forward at batch 32 gives them (random
+    """The BNN kernels against their plain versions, bit for bit, at the
+    shapes one ReActNet-A forward at batch 32 gives them (random
     activations, the model's own compressed 3x3 weights), plus ragged
     shapes; timed with CUDA events beside their bounds."""
+    _fused_info(comp)
     gen = torch.Generator(device=dev).manual_seed(2)
-    pack, contr, fused = _KernelSum(), _KernelSum(), _KernelSum()
+    pack, pack_cols, patches = _KernelSum(), _KernelSum(), _KernelSum()
+    contr, fused = _KernelSum(), _KernelSum()
     for i, ((cin, cout, stride, side), (words, tables, meta)) in enumerate(
             zip(_rn_blocks(), comp)):
         m = RN_BATCH * side * side
-        cols = torch.where(_real((m, 9 * cin), gen, dev) >= 0, 1.0, -1.0)
+        x = _real((RN_BATCH, side * stride, side * stride, cin), gen, dev)
+        cols = ops._im2col_signs(x, stride)[0]
         acts = torch.where(_real((m, cin), gen, dev) >= 0, 1.0, -1.0)
         w3 = torch.where(_real((cin, 9 * cin), gen, dev) >= 0, 1.0, -1.0)
         w1 = torch.where(_real((cout, cin), gen, dev) >= 0, 1.0, -1.0)
-        packed = {name: _time_pack(pack, x, f"block {i} {name}")
-                  for name, x in (("im2col", cols), ("w3", w3),
-                                  ("act1x1", acts), ("w1", w1))}
+        xw = _time_patches(patches, x, stride, f"block {i}")
+        _time_pack(pack_cols, cols, f"block {i} im2col")
+        packed = {"act1x1": _time_pack(pack, acts, f"block {i} act1x1")}
+        pack_act_graph = pack.last_graph_ms
+        packed["w1"] = _time_pack(pack, w1, f"block {i} w1")
+        packed["w3"] = _time_pack(pack_cols, w3, f"block {i} w3")
         _, b3 = _time_contraction(
-            contr, packed["im2col"].reshape(m, -1),
-            packed["w3"].reshape(cin, -1), 9 * cin, cols, w3, f"block {i} 3x3")
+            contr, xw.reshape(m, -1), packed["w3"].reshape(cin, -1), 9 * cin,
+            cols, w3, f"block {i} 3x3")
+        del cols
         _, b1 = _time_contraction(
             contr, packed["act1x1"].reshape(m, -1),
             packed["w1"].reshape(cout, -1), cin, acts, w1, f"block {i} 1x1")
-        xw = packed["im2col"]
         kw = dict(k_true=meta["k_true"], n_true=meta["n_true"],
                   codes=meta["codes"])
         got = fused_decode_matmul(words, xw, tables, **kw)
@@ -1113,26 +1233,38 @@ def phase_binary_kernels(dev, comp) -> list:
         _same(f"fused_decode_matmul block {i} (bit-plane table)",
               fused_decode_matmul(words, xw, lut, **kw), got)
         nb, gb = words.shape[:2]
+        t_tc = _mma_bounds(fused, m, cin, gb * 9)
+        fused.popc_ms += (nb * gb * meta["codes"] * 128
+                          * DECODE_OPS_PER_CODE / INT32_OPS_PER_S) * 1e3
         bf = fused.add(
-            time_ms(lambda: fused_decode_matmul(words, xw, tables, **kw),
-                    iters=20),
+            lambda: fused_decode_matmul(words, xw, tables, **kw),
             time_ms(lambda: ref.fused_decode_matmul(
                 words, xw, flat_table(tables, dev), **kw), iters=1, warmup=1),
             words.numel() * 4 + xw.numel() * 4 + 160 * 4 + got.numel() * 4,
-            m * cin * gb * 9 / POPC_OPS_PER_S
-            + nb * gb * meta["codes"] * 128 * DECODE_OPS_PER_CODE
-            / INT32_OPS_PER_S)
+            t_tc)
         cudnn_err = _cudnn_conv_err(cin, stride, side, gen, dev)
         print(f"  block {i:2d}: M={m} 3x3 K={9 * cin} N={cin}, 1x1 K={cin} "
               f"N={cout}; bounds 3x3 {b3:.4f} / 1x1 {b1:.4f} / fused "
-              f"{bf:.4f} ms; cuDNN f32 conv of +-1 operands off the "
-              f"integers by {cudnn_err:.3e}")
+              f"{bf:.4f} ms; graph ms: fused {fused.last_graph_ms:.4f}, "
+              f"patches {patches.last_graph_ms:.4f} (bound "
+              f"{patches.last_bound:.4f}), 1x1 pack {pack_act_graph:.4f}; "
+              f"cuDNN f32 conv of +-1 operands off the integers by "
+              f"{cudnn_err:.3e}")
+        del x, xw, got
     # ragged shapes: K not a multiple of 288 (nor of 9), N not of 32, M = 1
-    for m, k in ((1, 1), (3, 287), (37, 289), (1, 1000)):
+    for m, k in ((1, 1), (3, 287), (37, 289), (1, 1000), (700, 32)):
         x = _real((m, k), gen, dev)
         _same(f"binarize_pack ({m}, {k})", binarize_pack(x),
               ref.binarize_pack(x))
-    for m, n, k in ((1, 1, 9), (1, 33, 100), (65, 70, 577)):
+    for n, h, w, cin in ((2, 7, 7, 40), (2, 9, 5, 40), (1, 1, 1, 1),
+                         (3, 15, 16, 96)):
+        for stride in (1, 2):
+            x = _real((n, h, w, cin), gen, dev)
+            _same(f"binarize_pack_patches ({n}, {h}, {w}, {cin}) stride "
+                  f"{stride}", binarize_pack_patches(x, stride),
+                  ref.binarize_pack_patches(x, stride))
+    for m, n, k in ((1, 1, 9), (1, 33, 100), (65, 70, 577), (1, 130, 16400),
+                    (700, 40, 16400)):
         xw = binarize_pack(_real((m, k), gen, dev))
         w_bits = (torch.rand((n, k), generator=gen, device=dev) < 0.2)
         ww = binarize_pack(w_bits.float() - 0.5)
@@ -1152,21 +1284,34 @@ def phase_binary_kernels(dev, comp) -> list:
                           words, xw, flat_table(tables, dev), **kw))
     print(f"binary kernels: bit-exact vs their plain versions at all 13 "
           f"ReActNet-A block shapes at batch {RN_BATCH} (fused: both table "
-          f"forms) and on ragged shapes; torch._int_mm on +-1 int8 gives "
-          f"the contraction's integers too")
+          f"forms; patches: also vs im2col + binarize_pack) and on ragged "
+          f"shapes (fused: codes 8/16/32, both tables, M = 1, K 16,400 "
+          f"chunked at codes 32); torch._int_mm on +-1 int8 gives the "
+          f"contraction's integers too")
     for name, acc, extra in (
-            ("binarize_pack", pack, ""),
+            ("binarize_pack (1x1 activations, w1)", pack, ""),
+            ("binarize_pack (im2col columns, w3: the old 3x3 path)",
+             pack_cols, ""),
+            ("binarize_pack_patches", patches,
+             f", old path (im2col + binarize_pack) {patches.lib_ms:.4f} ms"),
             ("binary_contraction", contr,
-             f", torch._int_mm {contr.lib_ms:.4f} ms, f32 matmul "
-             f"{contr.lib_f32_ms:.4f} ms"),
-            ("fused_decode_matmul", fused, "")):
+             f", int8 tensor-core bound {contr.int8_ms:.4f} ms, __popc bound "
+             f"{contr.popc_ms:.4f} ms, torch._int_mm {contr.lib_ms:.4f} ms, "
+             f"f32 matmul {contr.lib_f32_ms:.4f} ms"),
+            ("fused_decode_matmul", fused,
+             f", int8 tensor-core bound {fused.int8_ms:.4f} ms, __popc + "
+             f"decode bound {fused.popc_ms:.4f} ms")):
         print(f"{name}: {acc.launches} launches of one forward: kernel "
-              f"{acc.ms:.4f} ms, plain {acc.plain_ms:.4f} ms, bound "
+              f"{acc.ms:.4f} ms (graph {acc.graph_ms:.4f} ms), plain "
+              f"{acc.plain_ms:.4f} ms, bound "
               f"{acc.bound_ms:.4f} ms (bytes {acc.t_bytes:.4f}, operations "
               f"{acc.t_ops:.4f}){extra}")
     rows = [
         pack.row("binarize_pack", "src/repro_torch/csrc/binarize_pack.cu",
                  "src/repro/kernels/binarize_pack.py:31", library=False),
+        patches.row("binarize_pack_patches",
+                    "src/repro_torch/csrc/binarize_pack.cu",
+                    "src/repro/kernels/binarize_pack.py:31", library=False),
         contr.row("binary_contraction",
                   "src/repro_torch/csrc/binary_contraction.cu",
                   "src/repro/kernels/binary_contraction.py:49", library=True),
@@ -1174,11 +1319,21 @@ def phase_binary_kernels(dev, comp) -> list:
                   "src/repro_torch/csrc/fused_decode_contraction.cu",
                   "src/repro/kernels/fused_decode_contraction.py:80",
                   library=False)]
-    rows[0]["shape"] = (f"52 launches of a packed forward (im2col, w3, 1x1 "
+    rows[0]["shape"] = (f"26 launches of a compressed forward (1x1 "
                         f"activations, w1 of 13 blocks), batch {RN_BATCH}")
-    rows[1]["shape"] = "26 launches of a packed forward (13 3x3 + 13 1x1)"
-    rows[1]["library_f32_ms"] = contr.lib_f32_ms
-    rows[2]["shape"] = "13 launches of a compressed forward (3x3 convs)"
+    rows[0]["ms_with_old_3x3_shapes"] = pack.ms + pack_cols.ms
+    rows[0]["graph_ms_with_old_3x3_shapes"] = (pack.graph_ms
+                                               + pack_cols.graph_ms)
+    rows[1]["shape"] = ("13 launches of a forward (3x3 conv inputs, NHWC); "
+                        "with src/repro/kernels/ops.py:105 _im2col_bits")
+    rows[1]["old_path_ms"] = patches.lib_ms
+    rows[2]["shape"] = "26 launches of a packed forward (13 3x3 + 13 1x1)"
+    rows[2]["library_f32_ms"] = contr.lib_f32_ms
+    rows[2]["int8_bound_ms"] = contr.int8_ms
+    rows[2]["popc_bound_ms"] = contr.popc_ms
+    rows[3]["shape"] = "13 launches of a compressed forward (3x3 convs)"
+    rows[3]["int8_bound_ms"] = fused.int8_ms
+    rows[3]["popc_bound_ms"] = fused.popc_ms
     return rows
 
 
@@ -1202,19 +1357,21 @@ def setup_reactnet(dev):
     return params, images, comp
 
 
+RN_KERNELS = (binarize_pack, binarize_pack_patches, binary_contraction,
+              fused_decode_matmul)
+
+
 def _rn_counts() -> dict:
-    return {"binarize_pack": binarize_pack.launches,
-            "binary_contraction": binary_contraction.launches,
-            "fused_decode_matmul": fused_decode_matmul.launches}
+    return {f.__name__: f.launches for f in RN_KERNELS}
 
 
 RN_EXPECT = {   # launches of one forward per conv mode (13 blocks)
-    "ste": {"binarize_pack": 0, "binary_contraction": 0,
-            "fused_decode_matmul": 0},
-    "packed": {"binarize_pack": 52, "binary_contraction": 26,
-               "fused_decode_matmul": 0},
-    "compressed": {"binarize_pack": 39, "binary_contraction": 13,
-                   "fused_decode_matmul": 13},
+    "ste": {"binarize_pack": 0, "binarize_pack_patches": 0,
+            "binary_contraction": 0, "fused_decode_matmul": 0},
+    "packed": {"binarize_pack": 39, "binarize_pack_patches": 13,
+               "binary_contraction": 26, "fused_decode_matmul": 0},
+    "compressed": {"binarize_pack": 26, "binarize_pack_patches": 13,
+                   "binary_contraction": 13, "fused_decode_matmul": 13},
 }
 
 
@@ -1226,8 +1383,8 @@ def phase_reactnet(dev, params, images, comp) -> dict:
     for mode in ("ste", "packed", "compressed"):
         cfg = dataclasses.replace(rn.CONFIG, conv_mode=mode)
         c = comp if mode == "compressed" else None
-        binarize_pack.launches = binary_contraction.launches = 0
-        fused_decode_matmul.launches = 0
+        for f in RN_KERNELS:
+            f.launches = 0
         out = rn.forward(cfg, params, images, compressed=c)
         torch.cuda.synchronize()
         launches[mode] = _rn_counts()

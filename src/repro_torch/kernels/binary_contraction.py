@@ -52,9 +52,10 @@ def binary_contraction(x_words: torch.Tensor, w_words: torch.Tensor, *,
         return out
     lib = _build.load("binary_contraction")
     fn = lib.binary_contraction_launch
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 \
-        + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 \
+            + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     code = fn(x_words.data_ptr(), w_words.data_ptr(), out.data_ptr(), m, n,
               kw, k_true, torch.cuda.current_stream(x_words.device).cuda_stream)
     _build.check(lib, "binary_contraction", code)

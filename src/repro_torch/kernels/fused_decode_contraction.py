@@ -13,15 +13,20 @@ The table may come in either of the reference's two forms, the (160,)
 flat table or the (5, 9) bit-plane LUT (the reference's ``gather``
 flag): the LUT is unpacked on the host to the same 160 values, as
 ``kernels.huffman_decode`` does.  The reference's ``bm`` was a TPU block
-size; the kernel chooses its own.
+size; the kernel's library plans its own launch (shared memory, M split,
+slab chunks), and :func:`fused_plan` reads that plan back.
 
-What bounds it on the card: operations (popcounts, plus the decode);
-see the source note in the ``.cu`` file.
+What bounds it on the card: the +-1 multiply-accumulates at the binary
+tensor-core rate, or the bytes of the activations and the int32 output;
+see the source note in the ``.cu`` file (the kernel's products run on the
+binary MMA, popcounts of AND; :func:`mma_rate` times it against the int8
+one).
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
@@ -29,6 +34,47 @@ from repro_torch.core.compression import DEFAULT_CODES_PER_SUB, \
     DEFAULT_SUBSTREAMS
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels.huffman_decode import flat_table
+from repro_torch.kernels.paged_attention import sm_count
+
+
+@dataclasses.dataclass(frozen=True)
+class FusedPlan:
+    """One launch of the slab kernel, as its library plans it: ``bm``
+    rows an M tile (by the slab's ``4 * codes`` columns, at least 32); the
+    grid is ``m_splits`` x NB blocks, block (split, nb) walking M tiles
+    split, split + m_splits, ...; ``slab_tiles`` decoded tiles fit in
+    ``smem_bytes`` of shared memory: all ``gb`` of them, or else the block
+    decodes a chunk of that many before each chunk of each M tile;
+    ``vec``: activations are copied 16 bytes at a time (for an x that is
+    16-byte aligned)."""
+    gb: int
+    bm: int
+    m_splits: int
+    slab_tiles: int
+    smem_bytes: int
+    vec: bool
+
+    @property
+    def chunked(self) -> bool:
+        return self.slab_tiles < self.gb
+
+
+def fused_plan(m: int, nb: int, gb: int, w_rows: int, codes: int,
+               sms: int) -> FusedPlan:
+    """The launch the slab kernel takes for M activation rows, NB slabs of
+    ``4 * codes`` weight rows and GB K blocks of tiles of ``w_rows`` words
+    a substream, on a card of ``sms`` SMs (read from its library, which
+    builds on the machine with the card)."""
+    lib = _build.load("fused_decode_contraction")
+    fn = lib.fused_decode_contraction_plan
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    vals = (ctypes.c_int * 5)()
+    _build.check(lib, "fused_decode_contraction",
+                 fn(m, nb, gb, w_rows, codes, sms, vals))
+    bm, m_splits, slab_tiles, smem_bytes, vec = vals
+    return FusedPlan(gb, bm, m_splits, slab_tiles, smem_bytes, bool(vec))
 
 
 def fused_decode_matmul(words: torch.Tensor, x_words: torch.Tensor,
@@ -73,13 +119,17 @@ def fused_decode_matmul(words: torch.Tensor, x_words: torch.Tensor,
     out = torch.empty((m, n_true), dtype=torch.int32, device=words.device)
     if m == 0 or n_true == 0:
         return out
+    if nb > 65535:
+        raise ValueError(f"NB={nb} slabs exceed the grid's 65535")
     lib = _build.load("fused_decode_contraction")
     fn = lib.fused_decode_contraction_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 \
-        + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 \
+            + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     code = fn(words.data_ptr(), x_words.data_ptr(), table.data_ptr(),
               out.data_ptr(), m, n_true, nb, gb, w_rows, codes, k_true,
+              sm_count(words.device.index),
               torch.cuda.current_stream(words.device).cuda_stream)
     _build.check(lib, "fused_decode_contraction", code)
     fused_decode_matmul.launches += 1
@@ -87,3 +137,43 @@ def fused_decode_matmul(words: torch.Tensor, x_words: torch.Tensor,
 
 
 fused_decode_matmul.launches = 0  # kernel launches (not plain-version calls)
+
+
+def fused_kernel_info(codes: int, chunked: bool = False) -> dict:
+    """Registers and local (spill) bytes a thread of the slab kernel that
+    launches with ``codes`` run, whole-slab or ``chunked``, on the current
+    card."""
+    lib = _build.load("fused_decode_contraction")
+    fn = lib.fused_decode_contraction_info
+    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
+    fn.restype = ctypes.c_int
+    vals = [ctypes.c_int(0) for _ in range(2)]
+    _build.check(lib, "fused_decode_contraction",
+                 fn(codes, int(chunked), *(ctypes.byref(v) for v in vals)))
+    return dict(zip(("registers", "local_bytes"), (v.value for v in vals)))
+
+
+def mma_rate(kind: str, blocks: int, iters: int = 2048) -> float:
+    """The probe: tera-ops a second of ``blocks`` blocks of 8 warps each
+    issuing ``iters`` x 16 independent MMAs from registers, ``kind`` "s8"
+    (m16n8k32, 8192 ops) or "b1" (m16n8k256 .and.popc, the kernel's, 65536
+    ops: a multiply-accumulate of two bits counted as 2), on the current
+    card."""
+    lib = _build.load("fused_decode_contraction")
+    fn = lib.fused_decode_contraction_mma_rate
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+    fn.restype = ctypes.c_int
+    code = {"s8": 0, "b1": 1}[kind]
+    out = torch.zeros(1, dtype=torch.int32, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    _build.check(lib, "fused_decode_contraction",
+                 fn(code, blocks, 16, out.data_ptr(), stream))
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    _build.check(lib, "fused_decode_contraction",
+                 fn(code, blocks, iters, out.data_ptr(), stream))
+    end.record()
+    torch.cuda.synchronize()
+    ops = blocks * 8 * iters * 16 * 16 * 8 * (32 if kind == "s8" else 256) * 2
+    return ops / (start.elapsed_time(end) * 1e-3) / 1e12

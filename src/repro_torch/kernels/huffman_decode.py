@@ -85,9 +85,10 @@ def huffman_decode(words: torch.Tensor, tables: torch.Tensor, *,
     out = torch.empty((t, c, s), dtype=torch.int32, device=words.device)
     lib = _build.load("huffman_decode")
     fn = lib.huffman_decode_launch
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 \
-        + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 \
+            + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     code = fn(words.data_ptr(), table.data_ptr(), out.data_ptr(), t, w, s,
               c, torch.cuda.current_stream(words.device).cuda_stream)
     _build.check(lib, "huffman_decode", code)

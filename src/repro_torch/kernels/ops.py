@@ -14,13 +14,13 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from repro_torch import resolve_device
 from repro_torch.core import compression
 from repro_torch.core.compression import DEFAULT_CODES_PER_SUB
 from repro_torch.kernels import ref
-from repro_torch.kernels.binarize_pack import binarize_pack
+from repro_torch.kernels.binarize_pack import binarize_pack, \
+    binarize_pack_patches
 from repro_torch.kernels.binary_contraction import binary_contraction
 from repro_torch.kernels.fused_decode_contraction import fused_decode_matmul
 from repro_torch.kernels.huffman_decode import huffman_decode, \
@@ -73,25 +73,10 @@ def decode_sequences(words: torch.Tensor, tables: torch.Tensor, *, c: int,
 
 
 # ---------------------------------------------------------------------------
-# 3x3 BNN convolution (im2col + contraction)
+# 3x3 BNN convolution (packed patches + contraction)
 # ---------------------------------------------------------------------------
 
-def _im2col(x: torch.Tensor, stride: int):
-    """NHWC -> ((N*Ho*Wo, Cin*9) 3x3 patches padded with -1, out spatial
-    shape).
-
-    Patch features are ordered (Cin, kh, kw), channel outermost, as
-    ``jax.lax.conv_general_dilated_patches`` orders them: each 9 features
-    are one channel's 3x3 window, the paper's bit sequence, matching
-    ``w.reshape(Cout, Cin * 9)``.  The -1 padding is the BNN's SAME
-    padding; as signs it packs to bit 0 like the reference's zero bits."""
-    n, _, _, cin = x.shape
-    xp = F.pad(x.permute(0, 3, 1, 2), (1, 1, 1, 1), value=-1.0)
-    cols = F.unfold(xp, (3, 3), stride=stride)         # (N, Cin*9, L)
-    ho = (xp.shape[2] - 3) // stride + 1
-    wo = (xp.shape[3] - 3) // stride + 1
-    cols = cols.transpose(1, 2).reshape(n * ho * wo, cin * 9)
-    return cols.contiguous(), (n, ho, wo)
+_im2col = ref.im2col
 
 
 def _im2col_signs(x: torch.Tensor, stride: int):
@@ -108,15 +93,21 @@ def _im2col_bits(x: torch.Tensor, stride: int):
     return (cols > 0).float(), shape
 
 
+def _conv_shape(x: torch.Tensor, stride: int) -> tuple[int, int, int]:
+    """(N, Ho, Wo) of a 3x3 conv of NHWC ``x`` with (1, 1) padding."""
+    n, h, w = x.shape[:3]
+    return n, (h - 1) // stride + 1, (w - 1) // stride + 1
+
+
 def binary_conv3x3(x: torch.Tensor, w: torch.Tensor, *,
                    stride: int = 1) -> torch.Tensor:
-    """BNN 3x3 conv via im2col + packed contraction -> (N, Ho, Wo, Cout)
-    f32; ``x`` NHWC real, ``w`` (Cout, Cin, 3, 3) latent weights."""
+    """BNN 3x3 conv via packed patches + packed contraction -> (N, Ho, Wo,
+    Cout) f32; ``x`` NHWC real, ``w`` (Cout, Cin, 3, 3) latent weights."""
     cout, cin = w.shape[:2]
-    cols, (n, ho, wo) = _im2col_signs(x, stride)
+    xw = binarize_pack_patches(_f32(x), stride)
     ww = binarize_pack(_f32(w.reshape(cout, cin * 9)))
-    out = binary_matmul_packed(binarize_pack(cols), ww, cin * 9)
-    return out.reshape(n, ho, wo, cout).float()
+    out = binary_matmul_packed(xw, ww, cin * 9)
+    return out.reshape(*_conv_shape(x, stride), cout).float()
 
 
 def compressed_binary_conv3x3(x: torch.Tensor, words: torch.Tensor,
@@ -125,10 +116,10 @@ def compressed_binary_conv3x3(x: torch.Tensor, words: torch.Tensor,
                               codes: int = DEFAULT_CODES_PER_SUB
                               ) -> torch.Tensor:
     """BNN 3x3 conv with weights Huffman-decoded inside the GEMM kernel."""
-    cols, (n, ho, wo) = _im2col_signs(x, stride)
-    out = fused_decode_matmul(words, binarize_pack(cols), tables,
-                              k_true=cin * 9, n_true=cout, codes=codes)
-    return out.reshape(n, ho, wo, cout).float()
+    out = fused_decode_matmul(words, binarize_pack_patches(_f32(x), stride),
+                              tables, k_true=cin * 9, n_true=cout,
+                              codes=codes)
+    return out.reshape(*_conv_shape(x, stride), cout).float()
 
 
 # ---------------------------------------------------------------------------

@@ -110,6 +110,31 @@ def binarize_pack(x: torch.Tensor) -> torch.Tensor:
     return pack_bits_runtime(x >= 0)
 
 
+def im2col(x: torch.Tensor, stride: int):
+    """NHWC -> ((N*Ho*Wo, Cin*9) 3x3 patches padded with -1, out spatial
+    shape).
+
+    Patch features are ordered (Cin, kh, kw), channel outermost, as
+    ``jax.lax.conv_general_dilated_patches`` orders them: each 9 features
+    are one channel's 3x3 window, the paper's bit sequence, matching
+    ``w.reshape(Cout, Cin * 9)``.  The -1 padding is the BNN's SAME
+    padding; as signs it packs to bit 0 like the reference's zero bits."""
+    n, _, _, cin = x.shape
+    xp = F.pad(x.permute(0, 3, 1, 2), (1, 1, 1, 1), value=-1.0)
+    cols = F.unfold(xp, (3, 3), stride=stride)         # (N, Cin*9, L)
+    ho = (xp.shape[2] - 3) // stride + 1
+    wo = (xp.shape[3] - 3) // stride + 1
+    cols = cols.transpose(1, 2).reshape(n * ho * wo, cin * 9)
+    return cols.contiguous(), (n, ho, wo)
+
+
+def binarize_pack_patches(x: torch.Tensor, stride: int) -> torch.Tensor:
+    """NHWC real -> packed sign bits of its 3x3 patches (the signs' im2col
+    columns, packed): (N*Ho*Wo, ceil(Cin/32), 9)."""
+    cols, _ = im2col(torch.where(x >= 0, 1.0, -1.0), stride)
+    return binarize_pack(cols)
+
+
 def pack_sequences(seqs: torch.Tensor) -> torch.Tensor:
     """(N, G) int sequences -> (N, G/32, 9) int32 packed words: word j of
     block g packs bit j (MSB-first: bit 8-j of the 9-bit value) of 32

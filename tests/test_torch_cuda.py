@@ -14,9 +14,11 @@ import torch
 
 from repro_torch.core import compression
 from repro_torch.kernels import kv_codec, ops, ref
-from repro_torch.kernels.binarize_pack import binarize_pack
+from repro_torch.kernels.binarize_pack import (binarize_pack,
+                                               binarize_pack_patches)
 from repro_torch.kernels.binary_contraction import binary_contraction
-from repro_torch.kernels.fused_decode_contraction import fused_decode_matmul
+from repro_torch.kernels.fused_decode_contraction import (
+    fused_decode_matmul, fused_kernel_info, fused_plan)
 from repro_torch.kernels.huffman_decode import flat_table, huffman_decode
 from repro_torch.kernels.paged_attention import (decode_pool,
                                                  gqa_kernel_info,
@@ -24,6 +26,7 @@ from repro_torch.kernels.paged_attention import (decode_pool,
                                                  paged_mixed_attention,
                                                  paged_mixed_attention_plain,
                                                  sm_count)
+from repro_torch.models.reactnet import CONFIG as RN
 from repro_torch.runtime.decode_cache import DecodeTileCache
 from repro_torch.runtime.weight_store import WeightStore
 
@@ -551,6 +554,94 @@ def test_fused_kernel_bit_exact_vs_plain(dev, m, n, k, codes, gather):
     want = ref.fused_decode_matmul(words, xw, flat_table(tables, dev),
                                    k_true=k, n_true=n, codes=codes)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("m,k", [(700, 32), (401, 96), (33, 4), (5, 2304),
+                                 (97, 64), (30, 128), (9, 256)])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_binarize_pack_kernel_runs_and_alignment(dev, m, k, offset):
+    """Whole rows of K <= 288 a block (K = 32: ReActNet block 0's 1x1
+    activations), and a base that is not 16-byte aligned (the scalar
+    load path)."""
+    rng = np.random.default_rng(m + k + offset)
+    flat = torch.from_numpy(_signs(rng, (m * k + offset,))).to(dev)
+    x = flat[offset:].view(m, k)
+    got = binarize_pack(x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref.binarize_pack(x))
+
+
+@pytest.mark.parametrize("cin", [1, 32, 40, 96])
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("n,h,w", [(2, 7, 7), (2, 9, 5), (1, 1, 1),
+                                   (3, 16, 15)])
+def test_binarize_pack_patches_kernel_bit_exact_vs_plain(dev, n, h, w, stride,
+                                                         cin):
+    x = torch.from_numpy(_signs(np.random.default_rng(h * w + cin),
+                                (n, h, w, cin))).to(dev)
+    before = binarize_pack_patches.launches
+    got = binarize_pack_patches(x, stride)
+    torch.cuda.synchronize()
+    assert binarize_pack_patches.launches == before + 1
+    want = ref.binarize_pack_patches(x, stride)
+    assert torch.equal(got, want)
+    assert torch.equal(got, binarize_pack(ops._im2col_signs(x, stride)[0]))
+
+
+@pytest.mark.parametrize("gather", ["onehot", "bitplane"])
+@pytest.mark.parametrize("codes", [4, 8, 16, 32])
+@pytest.mark.parametrize("m,n,k", [(1, 100, 1000), (2000, 150, 2000),
+                                   (3, 40, 16400)])
+def test_fused_kernel_tables_m1_and_k_chunked(dev, m, n, k, codes, gather):
+    """M = 1, several M tiles a block, and K 16,400: at codes 32 its 57
+    tiles do not fit in shared memory and the slab is decoded in chunks."""
+    rng = np.random.default_rng(m + k + codes)
+    w_bits = (rng.random((n, k)) < 0.3).astype(np.uint8)
+    words, tables, _ = ops.prepare_compressed_gemm(
+        w_bits, cluster=True, gather=gather, codes=codes, device=dev)
+    xw = ref.binarize_pack(torch.from_numpy(_signs(rng, (m, k))).to(dev))
+    got = fused_decode_matmul(words, xw, tables, k_true=k, n_true=n,
+                              codes=codes)
+    torch.cuda.synchronize()
+    want = ref.fused_decode_matmul(words, xw, flat_table(tables, dev),
+                                   k_true=k, n_true=n, codes=codes)
+    assert torch.equal(got, want)
+    plan = fused_plan(m, *words.shape[:3], codes, sm_count(dev.index))
+    assert plan.chunked == (k == 16400 and codes == 32)
+    if plan.chunked:                 # chunk starts stay 16-byte aligned
+        assert plan.slab_tiles % 4 == 0 and plan.smem_bytes <= 232448
+
+
+# local (spill) bytes of the slab kernel as built at 128 registers, whole
+# slab and chunked (-Xptxas=-v on the H100 machine's nvcc 12.9)
+FUSED_SPILL_BYTES = {False: 120, True: 136}
+
+
+@pytest.mark.parametrize("chunked", [False, True])
+@pytest.mark.parametrize("codes", [1, 8, 16, 32])
+def test_fused_kernel_info_fits_two_blocks_an_sm(dev, codes, chunked):
+    """At most 128 registers a thread (two blocks of 256 an SM), and no
+    more spilled bytes than the kernel was measured with."""
+    info = fused_kernel_info(codes, chunked)
+    assert 0 < info["registers"] <= 128
+    assert info["local_bytes"] <= FUSED_SPILL_BYTES[chunked], info
+
+
+def test_fused_plan_at_reactnet_shapes(dev):
+    """ReActNet-A's 13 3x3 convs at batch 32 (codes 8): the whole slab in
+    shared memory, two blocks an SM by shared memory, at least one block
+    an SM, each tile decoded m_splits times (the first kernel decoded it
+    once per 128-row M tile)."""
+    sms = sm_count(dev.index)
+    side, c = -(-RN.image_size // 2), RN.width
+    for mult, stride in RN.blocks:
+        side = (side - 1) // stride + 1
+        m, nb, gb = 32 * side * side, -(-c // 32), -(-9 * c // 288)
+        p = fused_plan(m, nb, gb, 3, 8, sms)
+        assert not p.chunked and 2 * p.smem_bytes <= 232448
+        assert p.m_splits * nb >= min(sms, -(-m // p.bm) * nb)
+        assert p.m_splits <= -(-m // 128)
+        c *= mult
 
 
 def test_binary_conv_paths_agree_on_the_card(dev):
