@@ -27,17 +27,19 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` with nvcc
   the codec; a small minitron and a small deepseek served on the card
   give the CPU's tokens, with and without the codec;
 * the paper's BNN: times the int8 and binary mma.sync probe, prints the
-  fused kernel's registers, spills and shared memory, holds the
-  binarize-pack ((M, K) rows and 3x3 patches straight from NHWC),
-  xnor-popcount contraction and fused Huffman-decode + binary
-  tensor-core contraction kernels against their plain versions bit for
-  bit at every ReActNet-A block shape at batch 32 (and ragged shapes; the
-  patches also against im2col + binarize-pack, timed beside them), then
+  fused and contraction kernels' registers, spills, shared memory and
+  launch plans, holds the binarize-pack ((M, K) rows and 3x3 patches
+  straight from NHWC), xnor-popcount contraction and fused Huffman-decode
+  kernels (both contractions on the binary tensor cores) against their
+  plain versions bit for bit at every ReActNet-A block shape at batch 32
+  (and ragged shapes; the patches also against im2col + binarize-pack,
+  timed beside them; the contraction's 3x3 and 1x1 shapes timed apart),
+  then
   classifies 32 images of 224x224 through ReActNet-A at
   full width in ``ste``, ``packed`` and ``compressed`` conv modes,
   checks identical logits and each kernel's launches, profiles the
-  compressed forward, and checks a small ReActNet's logits on card and
-  CPU.
+  packed and compressed forwards, and checks a small ReActNet's logits on
+  card and CPU.
 
 The last two lines of standard output are one JSON object per kernel
 (``{"kernels": [...]}``) and ``{"ok": true, "device": {...}}``.  Any
@@ -58,16 +60,17 @@ import time
 import numpy as np
 import torch
 
-sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                                "src"))
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+sys.path.insert(0, os.path.join(ROOT, "tools"))
 
 from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.core import bitpack  # noqa: E402
 from repro_torch.kernels import _build, kv_codec, ops, ref  # noqa: E402
 from repro_torch.kernels.binarize_pack import (  # noqa: E402
     binarize_pack, binarize_pack_patches)
-from repro_torch.kernels.binary_contraction import \
-    binary_contraction  # noqa: E402
+from repro_torch.kernels.binary_contraction import (  # noqa: E402
+    binary_contraction, contraction_kernel_info, contraction_plan)
 from repro_torch.kernels.fused_decode_contraction import (  # noqa: E402
     fused_decode_matmul, fused_kernel_info, fused_plan, mma_rate)
 from repro_torch.kernels.huffman_decode import (  # noqa: E402
@@ -82,6 +85,7 @@ from repro_torch.models.transformer import init_params  # noqa: E402
 from repro_torch.runtime import Scheduler, ServeEngine, ServeMetrics  # noqa: E402
 from repro_torch.tree import (  # noqa: E402
     tree_leaves, tree_map, tree_map_with_path)
+from profile_reactnet import profile_forward  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 F32_OPS_PER_S = 67e12            # H100 SXM CUDA cores, an FMA counted as 2
@@ -254,6 +258,8 @@ def phase_huffman(engine, expect) -> dict:
     if not np.array_equal(seqs, expect.ravel().astype(np.int32)):
         fail("decoded sequences differ from the registered weights' bits")
     ms = time_ms(lambda: huffman_decode(words, tables, c=c), iters=50)
+    g_ms = graph_ms(lambda: huffman_decode(words, tables, c=c))
+    d_ms = device_ms(lambda: huffman_decode(words, tables, c=c))
     plain_ms = time_ms(lambda: ref.decode_tiled(words, tables, c), iters=5)
     nbytes = words.numel() * 4 + tables.numel() * 4 + got.numel() * 4
     bms, by = bound_ms(nbytes, DECODE_OPS_PER_CODE * got.numel(),
@@ -261,12 +267,14 @@ def phase_huffman(engine, expect) -> dict:
     t, w, s = words.shape
     print(f"huffman_decode: (T={t}, W={w}, S={s}) -> C={c}, one full-width "
           f"matrix ({layer.n}x{layer.k} bits); bit-exact vs plain and vs "
-          f"the registered bits; kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-          f"ms, bound {bms:.4f} ms ({by})")
+          f"the registered bits; kernel {ms:.4f} ms (graph {g_ms:.4f}, "
+          f"device {d_ms:.4f}), plain {plain_ms:.4f} ms, bound {bms:.4f} ms "
+          f"({by}; device time {d_ms / bms:.2f}x it)")
     return {"name": "huffman_decode", "route": "cuda",
             "source": "src/repro_torch/csrc/huffman_decode.cu",
             "replaces": "src/repro/kernels/huffman_decode.py:112",
-            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+            "max_abs_err": 0.0, "ms": ms, "graph_ms": g_ms,
+            "device_ms": d_ms, "plain_ms": plain_ms,
             "bound_ms": bms, "bound_by": by, "library_ms": None,
             "shape": f"T={t} W={w} S={s} C={c}"}
 
@@ -1071,6 +1079,15 @@ class _KernelSum:
                 "library_ms": self.lib_ms if library else None}
 
 
+def _merged(*sums) -> _KernelSum:
+    """One kernel's times over the launches of several ``_KernelSum``s."""
+    out = _KernelSum()
+    for name in ("ms", "plain_ms", "lib_ms", "lib_f32_ms", "t_bytes", "t_ops",
+                 "bound_ms", "popc_ms", "int8_ms", "graph_ms", "launches"):
+        setattr(out, name, sum(getattr(a, name) for a in sums))
+    return out
+
+
 def _real(shape, gen, dev):
     """Real activations with some exact zeros (x >= 0 is bit 1 there)."""
     x = torch.randn(shape, generator=gen, device=dev)
@@ -1193,15 +1210,72 @@ def _fused_info(comp) -> None:
               f"activation copies")
 
 
+def _contraction_info() -> None:
+    """The contraction kernel's registers and spills at each slab width,
+    whole slab and chunked, and its launch plan at ReActNet-A's 26
+    shapes."""
+    for bn in (32, 64, 128):
+        for chunked in (False, True):
+            info = contraction_kernel_info(bn, chunked)
+            print(f"binary_contraction kernel (slab {bn} columns, "
+                  f"{'chunked' if chunked else 'whole'} slab): "
+                  f"{info['registers']} registers a thread, "
+                  f"{info['local_bytes']} local (spill) bytes")
+    sms = sm_count(0)
+    for i, (cin, cout, _, side) in enumerate(_rn_blocks()):
+        m = RN_BATCH * side * side
+        for conv, n, kw in (("3x3", cin, 9 * -(-cin // 32)),
+                            ("1x1", cout, 9 * -(-cin // 288))):
+            p = contraction_plan(m, n, kw, sms)
+            print(f"  block {i:2d} {conv} M={m} N={n} KW={kw}: grid "
+                  f"{p.m_splits} x {p.n_slabs} blocks of {p.bm} x {p.bn}, "
+                  f"slab {p.slab_steps} of {p.steps} k steps, "
+                  f"{p.smem_bytes} B of dynamic shared memory a block, "
+                  f"{16 if p.vec else 4}-byte copies")
+
+
+def _contraction_k_sweep(dev) -> None:
+    """Graph ms of the contraction at ReActNet-A blocks 6-10's 3x3 shape (M
+    6,272, N 512: 196 blocks of one M tile, all resident at once) as the
+    k steps grow, with the output fixed, fitted to ``a + b * steps``: ``a``
+    is a block's fixed cost (launch, slab and ring set-up, the output
+    pass), ``b`` its cost a k step."""
+    m, n, sms = RN_BATCH * 14 * 14, 512, sm_count(0)
+    rng = np.random.default_rng(5)
+    steps, times = [], []
+    for kw in (8, 16, 32, 64, 96, 144):
+        xw, ww = (torch.from_numpy(rng.integers(
+            0, 1 << 32, (r, kw), dtype=np.uint64).astype(np.uint32).view(
+                np.int32)).to(dev) for r in (m, n))
+        p = contraction_plan(m, n, kw, sms)
+        if p.m_splits * p.bm < m:
+            fail(f"contraction k sweep: KW {kw} plans {p}, not one M tile "
+                 f"a block")
+        _same(f"binary_contraction ({m}, {n}) KW {kw}",
+              binary_contraction(xw, ww, k_true=32 * kw),
+              ref.popcount_dot(xw, ww, 32 * kw))
+        steps.append(p.steps)
+        times.append(graph_ms(lambda: binary_contraction(
+            xw, ww, k_true=32 * kw)))
+    b, a = np.polyfit(steps, times, 1)
+    print(f"binary_contraction k sweep (M {m}, N {n}; graph ms by k steps "
+          f"of 8 words): "
+          f"{', '.join(f'{s}: {t:.4f}' for s, t in zip(steps, times))}; "
+          f"fit {a:.4f} ms + {b:.5f} ms a step (the output's bytes alone "
+          f"{m * n * 4 / HBM_BYTES_PER_S * 1e3:.4f} ms)")
+
+
 def phase_binary_kernels(dev, comp) -> list:
     """The BNN kernels against their plain versions, bit for bit, at the
     shapes one ReActNet-A forward at batch 32 gives them (random
     activations, the model's own compressed 3x3 weights), plus ragged
     shapes; timed with CUDA events beside their bounds."""
     _fused_info(comp)
+    _contraction_info()
+    _contraction_k_sweep(dev)
     gen = torch.Generator(device=dev).manual_seed(2)
     pack, pack_cols, patches = _KernelSum(), _KernelSum(), _KernelSum()
-    contr, fused = _KernelSum(), _KernelSum()
+    contr3, contr1, fused = _KernelSum(), _KernelSum(), _KernelSum()
     for i, ((cin, cout, stride, side), (words, tables, meta)) in enumerate(
             zip(_rn_blocks(), comp)):
         m = RN_BATCH * side * side
@@ -1217,11 +1291,11 @@ def phase_binary_kernels(dev, comp) -> list:
         packed["w1"] = _time_pack(pack, w1, f"block {i} w1")
         packed["w3"] = _time_pack(pack_cols, w3, f"block {i} w3")
         _, b3 = _time_contraction(
-            contr, xw.reshape(m, -1), packed["w3"].reshape(cin, -1), 9 * cin,
-            cols, w3, f"block {i} 3x3")
+            contr3, xw.reshape(m, -1), packed["w3"].reshape(cin, -1),
+            9 * cin, cols, w3, f"block {i} 3x3")
         del cols
         _, b1 = _time_contraction(
-            contr, packed["act1x1"].reshape(m, -1),
+            contr1, packed["act1x1"].reshape(m, -1),
             packed["w1"].reshape(cout, -1), cin, acts, w1, f"block {i} 1x1")
         kw = dict(k_true=meta["k_true"], n_true=meta["n_true"],
                   codes=meta["codes"])
@@ -1245,7 +1319,9 @@ def phase_binary_kernels(dev, comp) -> list:
         cudnn_err = _cudnn_conv_err(cin, stride, side, gen, dev)
         print(f"  block {i:2d}: M={m} 3x3 K={9 * cin} N={cin}, 1x1 K={cin} "
               f"N={cout}; bounds 3x3 {b3:.4f} / 1x1 {b1:.4f} / fused "
-              f"{bf:.4f} ms; graph ms: fused {fused.last_graph_ms:.4f}, "
+              f"{bf:.4f} ms; graph ms: contraction 3x3 "
+              f"{contr3.last_graph_ms:.4f}, 1x1 {contr1.last_graph_ms:.4f}, "
+              f"fused {fused.last_graph_ms:.4f}, "
               f"patches {patches.last_graph_ms:.4f} (bound "
               f"{patches.last_bound:.4f}), 1x1 pack {pack_act_graph:.4f}; "
               f"cuDNN f32 conv of +-1 operands off the integers by "
@@ -1282,22 +1358,49 @@ def phase_binary_kernels(dev, comp) -> list:
                       f"{gather}", fused_decode_matmul(words, xw, tables, **kw),
                       ref.fused_decode_matmul(
                           words, xw, flat_table(tables, dev), **kw))
+    # the contraction on random words (padded bits garbage): KW not a
+    # multiple of 9 or 8, k_true 0, KW 0, slabs staged in K chunks (at
+    # M 20,000 and 40,000 a block walks several M tiles, staging each
+    # chunk again for each)
+    rng = np.random.default_rng(3)
+    sms = sm_count(0)
+    for m, n, k, kw in ((37, 33, 400, 13), (1, 1, 5, 1), (5, 7, 0, 3),
+                        (3, 5, 0, 0), (300, 129, 16400, 513),
+                        (257, 40, 25000, 800), (20000, 129, 16400, 513),
+                        (40000, 40, 25000, 800)):
+        xw, ww = (torch.from_numpy(rng.integers(
+            0, 1 << 32, (r, kw), dtype=np.uint64).astype(np.uint32).view(
+                np.int32)).to(dev) for r in (m, n))
+        _same(f"binary_contraction ({m}, {n}, {k}) KW {kw}",
+              binary_contraction(xw, ww, k_true=k),
+              ref.popcount_dot(xw, ww, k))
+        p = contraction_plan(m, n, kw, sms)
+        if m >= 20000 and not (p.chunked and p.m_splits < -(-m // p.bm)):
+            fail(f"binary_contraction ({m}, {n}, {k}) KW {kw}: plan {p} "
+                 f"does not walk several M tiles a block in K chunks")
     print(f"binary kernels: bit-exact vs their plain versions at all 13 "
           f"ReActNet-A block shapes at batch {RN_BATCH} (fused: both table "
           f"forms; patches: also vs im2col + binarize_pack) and on ragged "
           f"shapes (fused: codes 8/16/32, both tables, M = 1, K 16,400 "
-          f"chunked at codes 32); torch._int_mm on +-1 int8 gives the "
-          f"contraction's integers too")
+          f"chunked at codes 32; contraction: also random words with "
+          f"garbage padded bits at KW 13/1/3/0, k_true 0, K-chunked slabs "
+          f"at KW 513/800 with one and with several M tiles a block); "
+          f"torch._int_mm on +-1 int8 gives the contraction's "
+          f"integers too")
+    contr = _merged(contr3, contr1)
     for name, acc, extra in (
             ("binarize_pack (1x1 activations, w1)", pack, ""),
             ("binarize_pack (im2col columns, w3: the old 3x3 path)",
              pack_cols, ""),
             ("binarize_pack_patches", patches,
              f", old path (im2col + binarize_pack) {patches.lib_ms:.4f} ms"),
-            ("binary_contraction", contr,
-             f", int8 tensor-core bound {contr.int8_ms:.4f} ms, __popc bound "
-             f"{contr.popc_ms:.4f} ms, torch._int_mm {contr.lib_ms:.4f} ms, "
-             f"f32 matmul {contr.lib_f32_ms:.4f} ms"),
+            *((f"binary_contraction{label}", c,
+               f", int8 tensor-core bound {c.int8_ms:.4f} ms, __popc bound "
+               f"{c.popc_ms:.4f} ms, torch._int_mm {c.lib_ms:.4f} ms, f32 "
+               f"matmul {c.lib_f32_ms:.4f} ms")
+              for label, c in ((" (3x3 convs)", contr3),
+                               (" (1x1 convs)", contr1),
+                               (" (all 26)", contr))),
             ("fused_decode_matmul", fused,
              f", int8 tensor-core bound {fused.int8_ms:.4f} ms, __popc + "
              f"decode bound {fused.popc_ms:.4f} ms")):
@@ -1328,12 +1431,25 @@ def phase_binary_kernels(dev, comp) -> list:
                         "with src/repro/kernels/ops.py:105 _im2col_bits")
     rows[1]["old_path_ms"] = patches.lib_ms
     rows[2]["shape"] = "26 launches of a packed forward (13 3x3 + 13 1x1)"
-    rows[2]["library_f32_ms"] = contr.lib_f32_ms
-    rows[2]["int8_bound_ms"] = contr.int8_ms
-    rows[2]["popc_bound_ms"] = contr.popc_ms
     rows[3]["shape"] = "13 launches of a compressed forward (3x3 convs)"
     rows[3]["int8_bound_ms"] = fused.int8_ms
     rows[3]["popc_bound_ms"] = fused.popc_ms
+    for name, c, shape, path in (
+            ("binary_contraction_3x3", contr3,
+             "13 launches of a packed forward (3x3 convs: K 9 Cin, N Cin)",
+             "packed forward less the compressed one (its 13 1x1 convs)"),
+            ("binary_contraction_1x1", contr1,
+             "13 launches of a packed or compressed forward (1x1 convs: K "
+             "Cin, N Cout)", "compressed forward")):
+        rows.append(c.row(name, "src/repro_torch/csrc/binary_contraction.cu",
+                          "src/repro/kernels/binary_contraction.py:49",
+                          library=True))
+        rows[-1]["shape"] = shape
+        rows[-1]["launches_from"] = path
+    for row, c in ((rows[2], contr), (rows[4], contr3), (rows[5], contr1)):
+        row["library_f32_ms"] = c.lib_f32_ms
+        row["int8_bound_ms"] = c.int8_ms
+        row["popc_bound_ms"] = c.popc_ms
     return rows
 
 
@@ -1378,7 +1494,10 @@ RN_EXPECT = {   # launches of one forward per conv mode (13 blocks)
 def phase_reactnet(dev, params, images, comp) -> dict:
     """ReActNet-A at full width on 32 images in every conv mode: identical
     logits, the kernels' launches, warm ms per forward; returns the
-    compressed forward's launches (the paper's path)."""
+    compressed forward's launches (the paper's path), and the contraction's
+    launches by shape: ``binary_contraction_1x1`` the compressed forward's
+    (its 1x1 convs), ``binary_contraction_3x3`` the packed forward's less
+    those (its 3x3 convs, which run in that forward only)."""
     logits, launches = {}, {}
     for mode in ("ste", "packed", "compressed"):
         cfg = dataclasses.replace(rn.CONFIG, conv_mode=mode)
@@ -1410,7 +1529,8 @@ def phase_reactnet(dev, params, images, comp) -> dict:
         fail(f"ReActNet logits differ between modes (max abs): {diff}")
     print(f"reactnet: logits of ste, packed and compressed (cluster=False) "
           f"bit-identical; argmax {logits['ste'].argmax(-1)[:8].tolist()}...")
-    profile_reactnet(params, images, comp)
+    for mode in ("packed", "compressed"):
+        profile_reactnet(params, images, comp, mode)
     t0 = time.monotonic()
     comp_c = rn.prepare_compressed(params, cluster=True)
     host_s = time.monotonic() - t0
@@ -1423,7 +1543,12 @@ def phase_reactnet(dev, params, images, comp) -> dict:
           f"(random weights: the ste argmax takes "
           f"{logits['ste'].argmax(-1).unique().numel()} distinct classes "
           f"over the batch)")
-    return launches["compressed"]
+    return {**launches["compressed"],
+            "binary_contraction_3x3":
+                launches["packed"]["binary_contraction"]
+                - launches["compressed"]["binary_contraction"],
+            "binary_contraction_1x1":
+                launches["compressed"]["binary_contraction"]}
 
 
 def _ratios(comp) -> str:
@@ -1437,29 +1562,20 @@ def _ratios(comp) -> str:
             f"{[round(m['ratio_stream'], 3) for _, _, m in comp]})")
 
 
-def profile_reactnet(params, images, comp) -> None:
-    """Where a warm compressed forward's time goes: device busy share of
-    the wall time and the top kernels by device time."""
+def profile_reactnet(params, images, comp, mode="compressed") -> None:
+    """Where a warm forward's time goes in conv ``mode``: device busy share
+    of the wall time and the top kernels by device time (profiled as
+    ``tools/profile_reactnet.py`` profiles it)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    cfg = dataclasses.replace(rn.CONFIG, conv_mode="compressed")
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.monotonic()
-        rn.forward(cfg, params, images, compressed=comp)
-        torch.cuda.synchronize()
-        wall_ms = (time.monotonic() - t0) * 1e3
-    averages = prof.key_averages()
-    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
-            for e in averages
-            if e.device_type == DeviceType.CUDA
-            and e.self_device_time_total > 0]
+    cfg = dataclasses.replace(rn.CONFIG, conv_mode=mode)
+    c = comp if mode == "compressed" else None
+    wall_ms, busy, rows, averages = profile_forward(
+        lambda: rn.forward(cfg, params, images, compressed=c))
     if not rows:
         print("profile reactnet: device time not measured (the profiler "
               "saw no CUDA kernels)")
         return
-    busy = sum(ms for _, ms, _ in rows)
-    print(f"profile reactnet (compressed, warm): wall {wall_ms:.1f} ms; "
+    print(f"profile reactnet ({mode}, warm): wall {wall_ms:.1f} ms; "
           f"device busy {busy:.1f} ms = {busy / wall_ms * 100:.1f}% of wall "
           f"(idle {100 - busy / wall_ms * 100:.1f}%); kernels by device time:")
     for key, ms, n in sorted(rows, key=lambda r: -r[1])[:10]:

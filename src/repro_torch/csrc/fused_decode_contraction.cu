@@ -73,11 +73,16 @@
 
 #include <algorithm>
 
+#include "binary_mma.cuh"
 #include "huffman_decode_step.cuh"
 
 namespace {
 
+using repro_torch::cp_async;
+using repro_torch::cp_async_commit;
+using repro_torch::cp_async_wait;
 using repro_torch::huffman_decode_code;
+using repro_torch::mma_b1;
 using repro_torch::kTableSize;
 
 constexpr int kThreads = 256;
@@ -116,35 +121,6 @@ __host__ __device__ inline Layout layout(int bn, int bm, int slab_tiles,
   l.wst = l.ws + (slab_tiles * kTaps + kStep - 1) / kStep * bn * kStep;
   l.words = l.wst + kChains * w_rows * kThreads;
   return l;
-}
-
-__device__ __forceinline__ void cp_async(uint32_t* dst, const uint32_t* src,
-                                         int bytes, bool vec) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  if (vec)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-                 "l"(src), "r"(bytes));
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-                 "l"(src), "r"(bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_stage() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 1) : "memory");
-}
-
-// d += popcount(a AND b) over k256.
-__device__ __forceinline__ void mma_b1(int (&d)[4], uint2 a_lo, uint2 a_hi,
-                                       uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a_lo.x), "r"(a_hi.x), "r"(a_lo.y), "r"(a_hi.y), "r"(b0), "r"(b1));
 }
 
 // Where a stage is: the block's M tile k, chunk c of the slab, k step kl
@@ -333,7 +309,7 @@ fused_decode_contraction_kernel(const uint32_t* __restrict__ words,
     }
     cp_async_commit();
     if (kChunked && cur.kl == 0) decode(cur.c);
-    cp_async_wait_stage();
+    cp_async_wait<kStages - 1>();
     __syncthreads();                    // stage s and the slab are in
     if (kChunked && cur.kl == 0) count_ones(cur.c);
     const int row0 = (split + cur.k * m_splits) * BM;

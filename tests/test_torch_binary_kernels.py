@@ -277,11 +277,17 @@ def test_build_target_hashes_included_headers(tmp_path, monkeypatch):
     csrc = tmp_path / "csrc"
     shutil.copytree(_build.CSRC, csrc)
     monkeypatch.setattr(_build, "CSRC", csrc)
-    before = {name: _build._target(name) for name in _build.KERNELS}
     assert {p.name for p in _build._sources("fused_decode_contraction")} \
-        == {"fused_decode_contraction.cu", "huffman_decode_step.cuh"}
-    header = csrc / "huffman_decode_step.cuh"
-    header.write_bytes(header.read_bytes() + b"\n// edited\n")
-    after = {name: _build._target(name) for name in _build.KERNELS}
-    changed = {name for name in _build.KERNELS if before[name] != after[name]}
-    assert changed == {"huffman_decode", "fused_decode_contraction"}
+        == {"fused_decode_contraction.cu", "binary_mma.cuh",
+            "huffman_decode_step.cuh"}
+    for header, users in (
+            ("huffman_decode_step.cuh",
+             {"huffman_decode", "fused_decode_contraction"}),
+            ("binary_mma.cuh",
+             {"binary_contraction", "fused_decode_contraction"})):
+        before = {name: _build._target(name) for name in _build.KERNELS}
+        path = csrc / header
+        path.write_bytes(path.read_bytes() + b"\n// edited\n")
+        after = {name: _build._target(name) for name in _build.KERNELS}
+        assert {name for name in _build.KERNELS
+                if before[name] != after[name]} == users

@@ -16,7 +16,8 @@ from repro_torch.core import compression
 from repro_torch.kernels import kv_codec, ops, ref
 from repro_torch.kernels.binarize_pack import (binarize_pack,
                                                binarize_pack_patches)
-from repro_torch.kernels.binary_contraction import binary_contraction
+from repro_torch.kernels.binary_contraction import (
+    binary_contraction, contraction_kernel_info, contraction_plan)
 from repro_torch.kernels.fused_decode_contraction import (
     fused_decode_matmul, fused_kernel_info, fused_plan)
 from repro_torch.kernels.huffman_decode import flat_table, huffman_decode
@@ -29,6 +30,7 @@ from repro_torch.kernels.paged_attention import (decode_pool,
 from repro_torch.models.reactnet import CONFIG as RN
 from repro_torch.runtime.decode_cache import DecodeTileCache
 from repro_torch.runtime.weight_store import WeightStore
+import contraction_walk as walk
 
 pytestmark = pytest.mark.cuda
 
@@ -522,18 +524,96 @@ def test_binarize_pack_kernel_bit_exact_vs_plain(dev, m, k):
     assert torch.equal(got, ref.binarize_pack(x))
 
 
-@pytest.mark.parametrize("m,n,k", [(1, 1, 9), (1, 31, 100), (65, 33, 288),
-                                   (130, 70, 2000), (7, 129, 9216)])
-def test_binary_contraction_kernel_bit_exact_vs_plain(dev, m, n, k):
+def _garbage_words(rng, rows, kw, dev):
+    """Random packed words: the bits past k_true are random too."""
+    w = rng.integers(0, 1 << 32, (rows, kw), dtype=np.uint64)
+    return torch.from_numpy(w.astype(np.uint32).view(np.int32)).to(dev)
+
+
+@pytest.mark.parametrize("m,n,k,kw", [
+    (1, 1, 9, None), (1, 31, 100, None), (65, 33, 288, None),
+    (130, 70, 2000, None), (7, 129, 9216, None),
+    (37, 33, 400, 13),              # KW not a multiple of 9, padded garbage
+    (401408, 64, 32, None),         # ReActNet-A block 0's 1x1 conv
+    (1568, 1024, 9216, None),       # block 12's 3x3 conv (KW 288)
+    (300, 129, 16400, 513),         # K-chunked slab at 128 columns
+    (257, 40, 25000, 800),          # K-chunked slab at 64 columns
+    (20000, 129, 16400, 513),       # the same, several M tiles a block
+    (40000, 40, 25000, 800),
+    (5, 7, 0, 3),                   # k_true 0
+    (3, 5, 0, 0)])                  # KW 0
+def test_binary_contraction_kernel_bit_exact_vs_plain(dev, m, n, k, kw):
+    """Operands packed from signs (``kw`` None) or random words of width
+    ``kw`` whose bits past k_true are garbage.  At M 20,000 and 40,000 a
+    block stages each chunk of its slab again for each of its M tiles."""
     rng = np.random.default_rng(m * n)
-    xw = ref.binarize_pack(torch.from_numpy(_signs(rng, (m, k))).to(dev))
-    ww = ref.binarize_pack(torch.from_numpy(_signs(rng, (n, k))).to(dev))
-    xw, ww = xw.reshape(m, -1), ww.reshape(n, -1)
+    if kw is None:
+        xw = ref.binarize_pack(torch.from_numpy(_signs(rng, (m, k))).to(dev))
+        ww = ref.binarize_pack(torch.from_numpy(_signs(rng, (n, k))).to(dev))
+        xw, ww = xw.reshape(m, -1), ww.reshape(n, -1)
+    else:
+        xw, ww = _garbage_words(rng, m, kw, dev), _garbage_words(rng, n, kw,
+                                                                 dev)
     before = binary_contraction.launches
     got = binary_contraction(xw, ww, k_true=k)
     torch.cuda.synchronize()
     assert binary_contraction.launches == before + 1
     assert torch.equal(got, ref.popcount_dot(xw, ww, k))
+    plan = contraction_plan(m, n, xw.shape[1], sm_count(dev.index))
+    assert plan.chunked == (kw in (513, 800))
+    if plan.chunked and m >= 20000:
+        assert plan.m_splits < -(-m // plan.bm)
+
+
+@pytest.mark.parametrize("kw", [9, 13, 36])
+@pytest.mark.parametrize("offset", [0, 1, 2])
+def test_binary_contraction_kernel_unaligned_operands(dev, kw, offset):
+    """Operands that start off a 16-byte boundary take the 4-byte copies."""
+    rng = np.random.default_rng(kw + offset)
+    m, n = 300, 70
+    flat = _garbage_words(rng, 1, (m + n) * kw + offset, dev)[0]
+    xw = flat[offset:offset + m * kw].view(m, kw)
+    ww = flat[offset + m * kw:].view(n, kw)
+    got = binary_contraction(xw, ww, k_true=kw * 32 - 5)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref.popcount_dot(xw, ww, kw * 32 - 5))
+
+
+# local (spill) bytes of the contraction kernel as built at 128 registers,
+# by slab width, whole slab and chunked (-Xptxas=-v on the H100 machine's
+# nvcc 12.9)
+CONTRACTION_SPILL_BYTES = {(32, False): 40, (64, False): 48,
+                           (128, False): 48, (32, True): 24, (64, True): 24,
+                           (128, True): 24}
+
+
+@pytest.mark.parametrize("chunked", [False, True])
+@pytest.mark.parametrize("bn", [32, 64, 128])
+def test_contraction_kernel_info_fits_two_blocks_an_sm(dev, bn, chunked):
+    """At most 128 registers a thread (two blocks of 256 an SM), and no
+    more spilled bytes than the kernel was measured with."""
+    info = contraction_kernel_info(bn, chunked)
+    assert 0 < info["registers"] <= 128
+    assert info["local_bytes"] <= CONTRACTION_SPILL_BYTES[bn, chunked], info
+
+
+def test_contraction_plan_is_the_walk_the_cpu_tests_emulate(dev):
+    """The library's plan equals ``contraction_walk.plan``, which the CPU
+    tests emulate, at ReActNet-A's 26 shapes and ragged and chunked ones,
+    on this card and on a card of one SM."""
+    shapes = [(1, 1, 9), (2, 33, 13), (513, 129, 13), (300, 129, 513),
+              (257, 40, 800), (20000, 129, 513), (40000, 40, 800),
+              (130, 1024, 288), (5, 7, 0)]
+    side, c = -(-RN.image_size // 2), RN.width
+    for mult, stride in RN.blocks:
+        side = (side - 1) // stride + 1
+        m = 32 * side * side
+        shapes += [(m, c, 9 * -(-c // 32)), (m, c * mult, 9 * -(-c // 288))]
+        c *= mult
+    for sms in (sm_count(dev.index), 1):
+        for m, n, kw in shapes:
+            assert contraction_plan(m, n, kw, sms) == walk.plan(m, n, kw,
+                                                                sms)
 
 
 @pytest.mark.parametrize("gather", ["onehot", "bitplane"])
@@ -670,6 +750,13 @@ def test_binary_wrappers_reject_what_the_kernels_do_not_take(dev):
         binary_contraction(xw[:, ::2], xw[:, ::2], k_true=100)
     with pytest.raises(ValueError, match="one card"):
         binary_contraction(xw, xw.cpu(), k_true=300)
+    before = binary_contraction.launches
+    with pytest.raises(RuntimeError, match="binary_contraction launch"):
+        binary_contraction(   # more 128-column slabs than a grid's 65535
+            xw[:, :1].contiguous(), torch.zeros(
+                (65535 * 128 + 1, 1), dtype=torch.int32, device=dev),
+            k_true=0)
+    assert binary_contraction.launches == before
     words, tables, _ = ops.prepare_compressed_gemm(
         np.ones((32, 300), np.uint8), device=dev)
     with pytest.raises(ValueError, match="G=1 != weight tiles GB=2"):
