@@ -26,6 +26,20 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` with nvcc
   one dense-MLP and one MoE block) the same way, with fp pools and with
   the codec; a small minitron and a small deepseek served on the card
   give the CPU's tokens, with and without the codec;
+* the gathered backend, monolithic prefill, monolithic lanes and wave
+  mode: the full-width minitron serves the same requests along each
+  (gathered with page 16, monolithic prefill installed into the pages
+  and decoded on the attention kernel at Q=1, one lane a slot, wave
+  admission, the gathered codec), and the deepseek the first two, each
+  from a cold tile cache with its launches and copied bytes checked and a
+  warm run profiled; at both models' full widths (bf16 MLPs left
+  uncompressed), one decode step's logits after monolithic prefill agree
+  bit for bit between monolithic lanes and gathered pages, and between
+  the kernel path and the gathered one within a bound set by one bf16 ulp
+  on the cached K/V, which a planted one-row page shift must break;
+  ``paged_decode_attention`` (Q=1) is held against its plain version at
+  both models' widths; the small models give the CPU's tokens on every
+  one of these paths;
 * the paper's BNN: times the int8 and binary mma.sync probe, prints the
   fused and contraction kernels' registers, spills, shared memory and
   launch plans, holds the binarize-pack ((M, K) rows and 3x3 patches
@@ -76,13 +90,15 @@ from repro_torch.kernels.fused_decode_contraction import (  # noqa: E402
 from repro_torch.kernels.huffman_decode import (  # noqa: E402
     flat_table, huffman_decode, pack_bitplane_tables)
 from repro_torch.kernels.paged_attention import (  # noqa: E402
-    decode_pool, gqa_kernel_info, mla_kernel_info, paged_mixed_attention,
-    paged_mixed_attention_plain, sm_count)
+    decode_pool, gqa_kernel_info, mla_kernel_info, paged_decode_attention,
+    paged_mixed_attention, paged_mixed_attention_plain, sm_count)
 from repro_torch.launch.serve import (  # noqa: E402
     TOO_DEEP_FOR_ONE_CARD, codec_report, cut_depth, tiny_config)
 from repro_torch.models import reactnet as rn  # noqa: E402
 from repro_torch.models.transformer import init_params  # noqa: E402
-from repro_torch.runtime import Scheduler, ServeEngine, ServeMetrics  # noqa: E402
+from repro_torch.runtime import (  # noqa: E402
+    Request, Scheduler, ServeEngine, ServeMetrics, SlotPool)
+from repro_torch.runtime.scheduler import SLOT_LEN_QUANTUM  # noqa: E402
 from repro_torch.tree import (  # noqa: E402
     tree_leaves, tree_map, tree_map_with_path)
 from profile_reactnet import profile_forward  # noqa: E402
@@ -109,6 +125,12 @@ ATTN_TOL = 1e-4                  # kernel vs plain, bf16 pools: both score
 #                                  in f32 from the same bf16 values, so they
 #                                  differ in f32 summation order and the
 #                                  exp/tanh implementations only
+# first decode step's logits after a monolithic prefill, the kernel path
+# against the gathered one: they may differ by at most this many times what
+# flipping the last bit of every cached bf16 K/V value (one bf16 ulp) moves
+# the gathered path's logits -- the kernel reads the same bf16 values and
+# differs from the plain attention in f32 rounding only
+LOGIT_ULP_FACTOR = 4
 ATTN_SOFTCAP = 4.0               # near the score scale, so a kernel that
 #                                  skipped the cap would fail the check
 
@@ -557,10 +579,13 @@ def phase_attention(dev) -> list:
     return [fp, codec]
 
 
-def _serve(engine, prompts, kv_codec="none"):
-    sched = Scheduler(engine, batch_size=SERVE_BATCH,
-                      prefill_chunk=SERVE_CHUNK, kv_page_size=SERVE_PAGE,
-                      attn_backend="cuda_paged", kv_codec=kv_codec)
+def _serve(engine, prompts, **kw):
+    """The serve phases' requests through a fresh Scheduler: the port's
+    main path (``cuda_paged``, chunk 64, page 16) unless ``kw`` says
+    otherwise."""
+    sched = Scheduler(engine, **{
+        "batch_size": SERVE_BATCH, "prefill_chunk": SERVE_CHUNK,
+        "kv_page_size": SERVE_PAGE, "attn_backend": "cuda_paged", **kw})
     for p in prompts:
         sched.submit(p, SERVE_GEN)
     t0 = time.monotonic()
@@ -624,7 +649,7 @@ def phase_serve(engine, mla=False) -> dict:
     if m2.kv_gather_bytes or m2.kv_prefill_gather_bytes:
         fail("the mixed-step path copied KV")
     profile_serve(engine, prompts)
-    return launches, prompts, m2
+    return launches, prompts, m2, toks1
 
 
 def phase_serve_codec(engine, prompts, fp_launches, fp_warm,
@@ -680,21 +705,24 @@ def phase_serve_codec(engine, prompts, fp_launches, fp_warm,
     return launches
 
 
-def profile_serve(engine, prompts, kv_codec="none") -> None:
+def profile_serve(engine, prompts, **kw) -> dict:
     """Where a warm serve run's time goes: one more run of the same
-    requests under torch.profiler -> device busy share of the wall time
-    and the kernels by device time; plus the host cost of one warm
-    ``materialize`` (every tile a cache hit)."""
+    requests (``_serve``'s path, ``kw`` over its defaults) under
+    torch.profiler -> device busy share of the wall time and the kernels
+    by device time; plus the host cost of one warm ``materialize`` (every
+    tile a cache hit).  Returns the run's warm ms/step, device busy ms and
+    paged-attention kernel ms."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     t0 = time.monotonic()
     engine.step_params()
     mat_ms = (time.monotonic() - t0) * 1e3
     hits0 = engine.cache.hits
+    engine.metrics = ServeMetrics()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
-        _serve(engine, prompts, kv_codec=kv_codec)
+        _serve(engine, prompts, **kw)
         wall_ms = (time.monotonic() - t0) * 1e3
     calls = (engine.cache.hits - hits0) // engine.store.n_tiles(
         engine.model_id)
@@ -704,14 +732,18 @@ def profile_serve(engine, prompts, kv_codec="none") -> None:
             if e.device_type == DeviceType.CUDA
             and e.self_device_time_total > 0]
     busy = sum(ms for _, ms, _ in rows)
-    print(f"profile (warm run, kv_codec={kv_codec}): wall {wall_ms:.1f} "
-          f"ms; {calls} materialize "
+    attn = [(ms, n) for key, ms, n in rows if "attention_kernel" in key]
+    out = {"ms_step": engine.metrics.ms_per_token(), "busy_ms": busy,
+           "attn_ms": sum(ms for ms, _ in attn),
+           "attn_launches": sum(n for _, n in attn), "mat_ms": mat_ms}
+    print(f"profile (warm run, {kw or 'main path'}): wall {wall_ms:.1f} "
+          f"ms, {out['ms_step']:.2f} ms/step; {calls} materialize "
           f"calls (one per tick and per admission); one warm materialize, "
           f"timed alone, {mat_ms:.1f} ms on the host")
     if not rows:
         print("profile: device time not measured (the profiler saw no "
               "CUDA kernels)")
-        return
+        return out
     print(f"profile: device busy {busy:.1f} ms = {busy / wall_ms * 100:.1f}% "
           f"of wall (idle {100 - busy / wall_ms * 100:.1f}%)")
     ranked = sorted(rows, key=lambda r: -r[1])
@@ -719,14 +751,212 @@ def profile_serve(engine, prompts, kv_codec="none") -> None:
     for i, (key, ms, n) in enumerate(ranked):
         if i < 8 or "attention_kernel" in key:
             print(f"  {ms:9.3f} ms  x{n:<5d} {key[:90]}")
+    return out
+
+
+# the serving paths beside the main one, each over _serve's defaults (cuda_paged,
+# chunk 64, page 16): the gathered backend (plain PyTorch attention over
+# lane views gathered from the pages), monolithic prefill installed into
+# the pages, one monolithic lane a slot, wave admission, the gathered codec
+BACKEND_PATHS = (
+    ("gathered, monolithic prefill, page 16",
+     dict(attn_backend="gathered", prefill_chunk=None)),
+    ("cuda_paged, monolithic prefill, page 16",
+     dict(prefill_chunk=None)),
+    ("gathered, monolithic prefill, monolithic lanes",
+     dict(attn_backend="gathered", prefill_chunk=None, kv_page_size=None)),
+    ("wave, cuda_paged, chunk 64, page 16", dict(mode="wave")),
+    ("gathered, codec, monolithic prefill, page 16",
+     dict(attn_backend="gathered", prefill_chunk=None, kv_codec="cluster")),
+)
+
+
+def phase_serve_paths(engine, prompts, ref, paths, mla=False) -> None:
+    """The same requests on the registered engine along each of ``paths``
+    (label, Scheduler arguments), each run from a cold tile cache with the
+    launch counts set to 0 just before it and read just after: the decode
+    kernel runs on every path and the attention kernel on every
+    cuda_paged one, never on a gathered one (the gathered attention is
+    plain PyTorch, the kernels' oracle); a monolithic cuda_paged run
+    launches it once a layer a decode step.  Copy counters are the
+    reference's formulas.  Prints ms/step, tok/s, copied bytes, one warm
+    ``materialize`` and the share of tokens that agree with ``ref`` (the
+    main path's tokens) and with the first path's (the gathered
+    monolithic oracle: a path with the same monolithic prefill gives its
+    first tokens), then profiles a warm run."""
+    name = "serve mla" if mla else "serve"
+    total = sum(len(t) for t in ref.values())
+
+    def agree(a, b):
+        n = sum(x == y for i in a for x, y in zip(a[i], b[i]))
+        return f"{n}/{total} ({n / total * 100:.1f}%)"
+
+    first = None
+    for label, kw in paths:
+        engine.cache.clear()
+        engine.metrics = ServeMetrics()
+        _reset_counts()
+        toks, wall, sched = _serve(engine, prompts, **kw)
+        n_attn = _attn_launches(mla)
+        n_dec = huffman_decode.launches
+        m, pool = engine.metrics, sched._pool
+        kernel = pool.backend == "cuda_paged"
+        mixed = kernel and sched.prefill_chunk is not None
+        if not n_dec or bool(n_attn) != kernel:
+            fail(f"{name} [{label}]: {n_dec} decode and {n_attn} attention "
+                 f"launches")
+        if kernel and not mixed and \
+                n_attn != m.decode_steps * engine.cfg.num_layers:
+            fail(f"{name} [{label}]: {n_attn} attention launches for "
+                 f"{m.decode_steps} Q=1 steps of {engine.cfg.num_layers} "
+                 f"layers")
+        install = 0 if mixed else len(prompts) * pool.install_bytes
+        if (m.kv_prefill_gather_bytes, m.kv_gather_bytes) != \
+                (install, m.decode_steps * pool.gather_bytes_per_step):
+            fail(f"{name} [{label}]: copied {m.kv_prefill_gather_bytes} / "
+                 f"{m.kv_gather_bytes} bytes, expected {install} / "
+                 f"{m.decode_steps} x {pool.gather_bytes_per_step}")
+        first = first or toks
+        print(f"{name} [{label}]: {wall:.2f}s from a cold tile cache, "
+              f"{m.ms_per_token():.2f} ms/step, {m.tokens_per_s():.1f} "
+              f"tok/s, {m.waves} waves; launches: decode {n_dec}, attention "
+              f"{n_attn}; kv gather {m.kv_gather_bytes} B "
+              f"({pool.gather_bytes_per_step} a step), install "
+              f"{m.kv_prefill_gather_bytes} B; tokens agreeing with the "
+              f"main path's {agree(ref, toks)}, with [{paths[0][0]}]'s "
+              f"{agree(first, toks)}")
+        prof = profile_serve(engine, prompts, **kw)
+        print(f"{name} [{label}] warm: {prof['ms_step']:.2f} ms/step, "
+              f"device busy {prof['busy_ms']:.1f} ms, attention kernel "
+              f"{prof['attn_ms']:.3f} ms x{prof['attn_launches']}, one warm "
+              f"materialize {prof['mat_ms']:.1f} ms")
+
+
+def _installed_pool(engine, params, firsts, slot_len, **kw):
+    """A fresh SlotPool with every (request, first token, batch-1 prefill
+    cache) of ``firsts`` installed into one slot."""
+    pool = SlotPool(engine, SERVE_BATCH, slot_len, **kw)
+    for slot, (req, tok, cache1) in zip(pool.slots, firsts):
+        slot.req = req
+        if not pool.reserve_for(slot, req):
+            fail("the logits check's pool cannot back its requests")
+        pool.install(slot, cache1, tok)
+    return pool
+
+
+def _shift_first_page(pool) -> None:
+    """The planted fault: slot 0's first page in every kernel-layout pool
+    shifted down by one row (row 0 repeated, the page's last key lost), as
+    an install that is one token off would leave it."""
+    page = int(pool.table[0, 0])
+    for leaf, ax in zip(tree_leaves(pool.kcache), pool._paged_axis):
+        rows = leaf.select(ax - 1, page).movedim(ax - 1, 0)
+        rows[1:] = rows[:-1].clone()
+
+
+def phase_decode_logits(cfg, dev, prompts, mla=False) -> None:
+    """The first SERVE_BATCH requests prefilled monolithically at full
+    width, installed into a fresh pool of each layout, and one decode
+    step's logits compared: gathered pages (page 16) and monolithic lanes
+    bit for bit (the gather is an exact copy), the kernel path
+    (``cuda_paged`` install, the attention kernel at Q=1) against the
+    gathered one within LOGIT_ULP_FACTOR times the bf16 noise floor, and a
+    kernel pool with a planted one-row shift must break that tolerance.
+
+    The engine serves ``cfg``'s bf16 MLP weights uncompressed (random from
+    seed 0): a binarised MLP takes the sign of its input, so a rounding
+    difference there can flip a bit and move the logits by a whole
+    weight, and no tolerance would then tell rounding from a fault.  The
+    install, the gather and the kernel are the same code either way."""
+    name = "serve mla" if mla else "serve"
+    engine = ServeEngine(cfg, init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), dev), device=dev,
+        compress=False)
+    params = engine.step_params()
+    reqs = [Request(i, np.asarray(p, np.int32), SERVE_GEN)
+            for i, p in enumerate(prompts[:SERVE_BATCH])]
+    need = max(engine.cache_len(r.prompt_len, SERVE_GEN) for r in reqs)
+    slot_len = -(-need // SLOT_LEN_QUANTUM) * SLOT_LEN_QUANTUM
+    engine.metrics = ServeMetrics()
+    firsts = [(r, *engine.prefill_request(params, r.prompt, slot_len))
+              for r in reqs]
+    paged = dict(page_size=SERVE_PAGE)
+    layouts = {"cuda_paged": dict(backend="cuda_paged", **paged),
+               "gathered": dict(backend="gathered", **paged),
+               "lanes": dict(backend="gathered")}
+    pools = {k: _installed_pool(engine, params, firsts, slot_len, **kw)
+             for k, kw in layouts.items()}
+    pool = _installed_pool(engine, params, firsts, slot_len,
+                           **layouts["gathered"])
+    for pg in pool.pages:
+        if pg.dtype != torch.bfloat16:
+            fail(f"{name}: the logits check expects bf16 pages, not "
+                 f"{pg.dtype}")
+        pg.view(torch.int16).bitwise_xor_(1)
+    pools["ulp"] = pool
+    pool = _installed_pool(engine, params, firsts, slot_len,
+                           **layouts["cuda_paged"])
+    _shift_first_page(pool)
+    pools["fault"] = pool
+    with torch.no_grad():
+        out = {k: p.decode_logits(params)[:len(reqs)].float()
+               for k, p in pools.items()}
+    if not all(bool(torch.isfinite(v).all()) for v in out.values()):
+        fail(f"{name}: non-finite first-decode logits")
+
+    def diff(k):
+        return float((out[k] - out["gathered"]).abs().max())
+
+    floor = diff("ulp")
+    tol = LOGIT_ULP_FACTOR * floor
+    err, fault = diff("cuda_paged"), diff("fault")
+    exact = torch.equal(out["lanes"], out["gathered"])
+    print(f"{name} first-decode logits, uncompressed MLPs ({len(reqs)} "
+          f"requests, prompts "
+          f"{[r.prompt_len for r in reqs]}, monolithic prefill, "
+          f"{out['gathered'].shape[-1]} logits, max |logit| "
+          f"{float(out['gathered'].abs().max()):.3f}): monolithic lanes vs "
+          f"gathered page {SERVE_PAGE} {'bit for bit' if exact else 'DIFFER'};"
+          f" max abs diff vs gathered: cuda_paged kernel {err:.4e}, one bf16 "
+          f"ulp on every cached K/V {floor:.4e} (tolerance {LOGIT_ULP_FACTOR}"
+          f"x = {tol:.4e}), planted one-row shift of a kernel page "
+          f"{fault:.4e}")
+    if not exact:
+        fail(f"{name}: monolithic lanes' logits differ from gathered "
+             f"pages' by {diff('lanes'):.4e}")
+    if not 0 < floor or not err <= tol:
+        fail(f"{name}: the kernel path's first-decode logits differ from "
+             f"the gathered path's by {err:.4e} (tolerance {tol:.4e})")
+    if not fault > tol:
+        fail(f"{name}: the logits check does not see a planted one-row "
+             f"shift ({fault:.4e} <= {tol:.4e})")
+
+
+# the small models' paths, card against CPU: the main path with fp and
+# codec pools, then every path of BACKEND_PATHS (small: chunk 3, page 4)
+SMALL_PATHS = (
+    dict(prefill_chunk=3, kv_page_size=4),
+    dict(prefill_chunk=3, kv_page_size=4, kv_codec="cluster"),
+    dict(attn_backend="gathered"),
+    dict(attn_backend="gathered", kv_page_size=4),
+    dict(attn_backend="gathered", prefill_chunk=3, kv_page_size=4),
+    dict(attn_backend="gathered", kv_page_size=4, kv_codec="cluster"),
+    dict(attn_backend="gathered", prefill_chunk=3, kv_page_size=4,
+         kv_codec="cluster"),
+    dict(kv_page_size=4),
+    dict(kv_page_size=4, kv_codec="cluster"),
+    dict(mode="wave", attn_backend="gathered"),
+    dict(mode="wave", prefill_chunk=3, kv_page_size=4),
+)
 
 
 def phase_small_reference(dev, cfg, label) -> None:
-    """A small model served on the card gives the CPU's tokens.  Its dense
-    MLP weights are +-1 (unit scale), so every binarised product is an
-    exact integer on either device; with other scales, a unit whose
-    +-alpha terms cancel exactly is rounding noise whose sign follows the
-    BLAS's summation order (as it does in the JAX reference)."""
+    """A small model served on the card gives the CPU's tokens, on every
+    path of ``SMALL_PATHS``.  Its dense MLP weights are +-1 (unit scale),
+    so every binarised product is an exact integer on either device; with
+    other scales, a unit whose +-alpha terms cancel exactly is rounding
+    noise whose sign follows the BLAS's summation order (as it does in the
+    JAX reference)."""
     params = tree_map_with_path(
         lambda path, w: torch.where(w >= 0, 1.0, -1.0)
         if "mlp" in path.split("/") else w,
@@ -734,23 +964,61 @@ def phase_small_reference(dev, cfg, label) -> None:
     rng = np.random.default_rng(3)
     reqs = [(rng.integers(0, cfg.vocab_size, n), g)
             for n, g in ((5, 7), (12, 2), (20, 5), (6, 9), (3, 1), (9, 4))]
-    for codec in ("none", "cluster"):
+    engines = {str(d): ServeEngine(cfg, params, device=d)
+               for d in ("cpu", dev)}
+    for kw in SMALL_PATHS:
         out = {}
-        for device in ("cpu", dev):
-            engine = ServeEngine(cfg, params, device=device)
-            sched = Scheduler(engine, batch_size=2, prefill_chunk=3,
-                              kv_page_size=4, attn_backend="cuda_paged",
-                              kv_codec=codec)
+        for device, engine in engines.items():
+            sched = Scheduler(engine, batch_size=2, buckets=(8, 32),
+                              **{"attn_backend": "cuda_paged", **kw})
             for r in reqs:
                 sched.submit(*r)
-            out[str(device)] = {r.rid: tuple(r.generated)
-                                for r in sched.run()}
+            out[device] = {r.rid: tuple(r.generated) for r in sched.run()}
         if out["cpu"] != out[str(dev)]:
-            fail(f"{label} (kv_codec={codec}) on the card gave other "
-                 f"tokens than on the CPU: {out}")
-        print(f"small reference: {label} ({cfg.d_model} wide, f32), "
-              f"kv_codec={codec}, serves {len(reqs)} requests to identical "
-              f"tokens on cuda and cpu")
+            fail(f"{label} ({kw}) on the card gave other tokens than on "
+                 f"the CPU: {out}")
+    print(f"small reference: {label} ({cfg.d_model} wide, f32) serves "
+          f"{len(reqs)} requests to identical tokens on cuda and cpu on "
+          f"{len(SMALL_PATHS)} paths: {list(SMALL_PATHS)}")
+
+
+def phase_decode_wrapper(dev) -> None:
+    """``paged_decode_attention``, the Q=1 wrapper, on the card at
+    minitron-8b's widths (32 query / 8 KV heads, D 128) and deepseek-v2's
+    MLA widths, bf16 pools with page 0 poisoned, against the plain
+    version at Q=1 (``ATTN_TOL``); one kernel launch a call.  These
+    launches are comparisons and count for no path."""
+    cfg = get_config("minitron-8b")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    pps = -(-(int(SERVE_PROMPTS.max()) + SERVE_GEN) // SERVE_PAGE)
+    lengths = [pps * SERVE_PAGE, 17, 1, 200]
+    ones = [1] * SERVE_BATCH
+    q, k, v, table, ln, ql = _attn_inputs(
+        dev, 1, ones, lengths, pps, gen, h=cfg.num_heads,
+        kh=cfg.num_kv_heads, d=cfg.head_dim)
+    k[0], v[0] = 3e4, -3e4
+    cases = [("minitron-8b", (q, k, v, table, ln), {}, {})]
+    q, c, q2, pe, table, ln, ql = _mla_inputs(dev, 1, ones, lengths, pps,
+                                              gen)
+    c[0], pe[0] = 3e4, 3e4
+    cases.append(("deepseek-v2-236b (MLA)", (q, c, c, table, ln),
+                  {"q2": q2}, {"k2_pages": pe, "scale": MLA_SCALE}))
+    for label, (q, k, v, table, ln), qs, kw in cases:
+        n0 = paged_mixed_attention.launches
+        got = paged_decode_attention(
+            q[:, 0], k, v, table, ln,
+            **{n: a[:, 0] for n, a in qs.items()}, page_size=SERVE_PAGE,
+            **kw)
+        launched = paged_mixed_attention.launches - n0
+        want = paged_mixed_attention_plain(
+            q, k, v, table, ln, ql, **qs, page_size=SERVE_PAGE, **kw)[:, 0]
+        err = float((got - want).abs().max())
+        if launched != 1 or not err <= ATTN_TOL:
+            fail(f"paged_decode_attention at {label} widths: {launched} "
+                 f"launches, max abs err {err:.3e} (tolerance {ATTN_TOL})")
+        print(f"paged_decode_attention (Q=1) at {label} widths, bf16 pools, "
+              f"page 0 poisoned: {tuple(got.shape)}, max abs err vs plain "
+              f"{err:.3e} <= {ATTN_TOL}, 1 kernel launch")
 
 
 def phase_small_mla_reference(dev) -> None:
@@ -1019,9 +1287,12 @@ def phase_serve_mla(dev) -> dict:
           f"({cfg.d_model}x{cfg.d_ff}, layer 0) in "
           f"{time.monotonic() - t0:.1f}s, {rep['packed_bytes']} packed -> "
           f"{rep['stream_bytes']} stream bytes ({rep['ratio_stream']:.3f}x)")
-    launches, prompts, fp_warm = phase_serve(engine, mla=True)
+    launches, prompts, fp_warm, toks = phase_serve(engine, mla=True)
     codec = phase_serve_codec(engine, prompts, launches, fp_warm, mla=True)
+    phase_serve_paths(engine, prompts, toks, BACKEND_PATHS[:2], mla=True)
     del engine
+    torch.cuda.empty_cache()
+    phase_decode_logits(cfg, dev, prompts, mla=True)
     torch.cuda.empty_cache()
     return {"paged_mixed_attention_mla": launches["paged_mixed_attention_mla"],
             "paged_mixed_attention_mla_codec":
@@ -1655,14 +1926,19 @@ def main() -> None:
     phase_build()
     engine, expect = phase_register(dev)
     kernels = [phase_huffman(engine, expect), *phase_attention(dev)]
-    launches, prompts, fp_warm = phase_serve(engine)
+    launches, prompts, fp_warm, toks = phase_serve(engine)
     codec_launches = phase_serve_codec(engine, prompts, launches, fp_warm)
     launches["paged_mixed_attention_codec"] = \
         codec_launches["paged_mixed_attention_codec"]
     phase_fused_operands(engine, dev)
+    phase_serve_paths(engine, prompts, toks, BACKEND_PATHS)
+    cfg = engine.cfg.scaled(binarize_mlp=False)
     del engine
     torch.cuda.empty_cache()
+    phase_decode_logits(cfg, dev, prompts)
+    torch.cuda.empty_cache()
     kernels += phase_attention_mla(dev)
+    phase_decode_wrapper(dev)
     launches.update(phase_serve_mla(dev))
     phase_small_mla_reference(dev)
     phase_small_reference(dev, tiny_config("minitron-8b"), "tiny minitron")

@@ -262,6 +262,28 @@ def paged_mixed_attention(q, k_pages, v_pages, table, lengths, q_lens,
     return out
 
 
+def paged_decode_attention(q, k_pages, v_pages, table, lengths, q2=None,
+                           k2_pages=None, k_scales=None, v_scales=None,
+                           k2_scales=None, codebook=None, *,
+                           window: int = 0, softcap_val: float = 0.0,
+                           scale: float = 1.0, page_size: int = 0,
+                           pages_per_step: int = 1,
+                           dequant: str = "gather") -> torch.Tensor:
+    """out (S, H, Dv) float32 — single-token decode, the ``Q == 1`` case
+    of :func:`paged_mixed_attention`: ``q`` (S, H, D) (and ``q2``
+    (S, H, D2)) one query a slot, at position ``lengths[s] - 1``.  It
+    launches the same kernels (GQA, or MLA with ``q2``) with
+    ``q_lens = 1``; CPU tensors take their plain version."""
+    out = paged_mixed_attention(
+        q[:, None], k_pages, v_pages, table, lengths,
+        torch.ones((q.shape[0],), dtype=torch.int32, device=q.device),
+        None if q2 is None else q2[:, None], k2_pages, k_scales, v_scales,
+        k2_scales, codebook, window=window, softcap_val=softcap_val,
+        scale=scale, page_size=page_size, pages_per_step=pages_per_step,
+        dequant=dequant)
+    return out[:, 0]
+
+
 @functools.lru_cache(maxsize=None)
 def sm_count(device: int | None = None) -> int:
     """Streaming multiprocessors of card ``device`` (the current one when

@@ -3,16 +3,23 @@
 
 The model's MLP projections are binarised, Huffman-compressed into the
 WeightStore and rebuilt each step from the decode-tile cache (the decode
-kernel runs on misses); requests flow through the continuous-batching
-scheduler, whose every iteration is one ragged mixed step of prefill
-chunks and decode tokens over the KV page pools (the paged-attention
-kernel walks the page tables).  ``--kv-codec cluster`` keeps the pages as
-int8 codebook codes with per-token scales, decoded inside the kernel.  It
-prints the same summary lines as the reference launcher for what it
-supports.
+kernel runs on misses); requests flow through the slot scheduler.  Under
+``--attn-backend cuda_paged`` (the default) every iteration is one ragged
+mixed step of prefill chunks and decode tokens over the KV page pools,
+and the paged-attention kernel walks the page tables; ``--prefill-chunk
+0`` prefills each prompt alone at admission and installs it into its
+pages instead.  ``--attn-backend gathered`` is the reference's default
+path: monolithic prefill and one monolithic lane per slot unless
+``--prefill-chunk`` / ``--kv-page-size`` are given, attention in plain
+PyTorch over lane views.  ``--kv-codec cluster`` keeps the pages as int8
+codebook codes with per-token scales (decoded inside the kernel, or at
+gather).  It prints the same summary lines as the reference launcher for
+what it supports.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --scale tiny --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --scale tiny --device cuda
+  PYTHONPATH=src python -m repro_torch.launch.serve --scale tiny \
+      --device cpu --attn-backend gathered [--mode wave]
   PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v2-236b \
       --scale tiny --device cpu --kv-codec cluster
   PYTHONPATH=src python -m repro_torch.launch.serve --scale full \
@@ -42,7 +49,6 @@ from repro_torch.kernels import kv_codec as kvc
 from repro_torch.models.transformer import init_params
 from repro_torch.runtime import Scheduler, ServeEngine
 from repro_torch.runtime.decode_cache import POLICIES
-from repro_torch.tree import tree_leaves
 
 TINY_OVERRIDES = dict(
     num_layers=2, scan_repeats=2, prefix_kinds=(), suffix_kinds=(),
@@ -110,8 +116,7 @@ def codec_report(pool, m) -> None:
           f"{m.kv_bytes_avoided} resident bytes avoided)")
     print(f"kv codec error bound: {m.kv_codec_error_bound:.3e} "
           f"(max per-token scale / 254)")
-    codes = [c.cpu().numpy().ravel() for c in tree_leaves(pool.kcache)
-             if c.dtype == torch.int8]
+    codes = [c.cpu().numpy().ravel() for c in pool.code_pools()]
     if codes:
         rep = kvc.huffman_report(np.concatenate(codes))
         print(f"kv codec at-rest huffman: {rep['avg_bits']:.2f} "
@@ -140,17 +145,28 @@ def main(argv=None):
                          "unbounded; 0 = caching disabled)")
     ap.add_argument("--policy", choices=sorted(POLICIES), default="lru",
                     help="decode-cache eviction policy")
-    ap.add_argument("--attn-backend", choices=["cuda_paged"],
+    ap.add_argument("--mode", choices=["continuous", "wave"],
+                    default="continuous",
+                    help="slot scheduling: continuous (admit-on-retire) or "
+                         "wave (drain before admitting)")
+    ap.add_argument("--attn-backend", choices=["gathered", "cuda_paged"],
                     default="cuda_paged",
                     help="cuda_paged: the paged-attention kernel walks the "
-                         "page tables in place (the only backend ported)")
-    ap.add_argument("--prefill-chunk", type=int, default=16,
-                    help="prompt chunk size of the mixed step")
+                         "page tables in place; gathered: pages are copied "
+                         "into contiguous lane views each step and attended "
+                         "in plain PyTorch (the reference's oracle)")
+    ap.add_argument("--prefill-chunk", type=int, default=None,
+                    help="prompt chunk size (0 = monolithic prefill at "
+                         "admission; omitted: 16 under cuda_paged, where "
+                         "chunks ride the mixed step, monolithic under "
+                         "gathered)")
     ap.add_argument("--prefill-budget", type=int, default=None,
                     help="max prefill tokens per scheduler iteration "
                          "(default: one chunk)")
-    ap.add_argument("--kv-page-size", type=int, default=16,
-                    help="tokens per KV page")
+    ap.add_argument("--kv-page-size", type=int, default=None,
+                    help="tokens per KV page (omitted: 16 under "
+                         "cuda_paged, one monolithic lane per slot under "
+                         "gathered)")
     ap.add_argument("--kv-pages", type=int, default=None,
                     help="page-pool size (default: fully backs every slot)")
     ap.add_argument("--kv-codec", choices=list(kvc.KV_CODECS),
@@ -166,6 +182,14 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
+    paged_default = 16 if args.attn_backend == "cuda_paged" else None
+    if args.prefill_chunk is None:
+        args.prefill_chunk = paged_default
+    if args.kv_page_size is None:
+        args.kv_page_size = paged_default
+    args.prefill_chunk = args.prefill_chunk or None
+    if args.kv_page_size is not None and args.kv_page_size <= 0:
+        ap.error("--kv-page-size must be positive")
     if args.scale == "tiny":
         if args.layers is not None:
             ap.error("--layers cuts the depth at --scale full only")
@@ -198,7 +222,7 @@ def main(argv=None):
     else:
         print(f"weight store: serving {args.arch} uncompressed")
 
-    sched = Scheduler(engine, batch_size=args.batch,
+    sched = Scheduler(engine, batch_size=args.batch, mode=args.mode,
                       prefill_chunk=args.prefill_chunk,
                       prefill_budget=args.prefill_budget,
                       kv_page_size=args.kv_page_size,
@@ -220,7 +244,7 @@ def main(argv=None):
     assert len(completed) == n_requests
     assert all(len(r.generated) == r.max_new_tokens for r in completed)
     print(f"served {len(completed)} requests in {wall:.2f}s "
-          f"(continuous slots, batch {args.batch}, {m.prefills} prefills, "
+          f"({args.mode} slots, batch {args.batch}, {m.prefills} prefills, "
           f"device {device})")
     ttfts = [r.first_token_latency() for r in completed]
     ttft = sum(t for t in ttfts if t is not None) / max(len(ttfts), 1)

@@ -9,10 +9,11 @@ from typing import Any, Callable
 from repro_torch.models import transformer
 from repro_torch.tree import tree_leaves
 
-# the attention backends this port serves with: "cuda_paged" hands the page
-# pools and page tables to mixed_step, whose CUDA kernel walks the table.
-# The reference's "gathered" oracle backend is not ported yet.
-ATTN_BACKENDS = ("cuda_paged",)
+# the attention backends this port serves with: "gathered" copies each
+# slot's pages into a contiguous lane view per step and runs plain PyTorch
+# attention over it (the reference's oracle), "cuda_paged" hands the page
+# pools and page tables to mixed_step, whose CUDA kernel walks the table
+ATTN_BACKENDS = ("gathered", "cuda_paged")
 
 # block kinds whose caches can resume a prompt mid-prefill
 CHUNKABLE_KINDS = frozenset(
@@ -27,7 +28,15 @@ PAGEABLE_KINDS = frozenset(
 
 @dataclasses.dataclass(frozen=True)
 class ModelAPI:
+    forward: Callable[..., Any]              # (cfg, params, tokens)
+    prefill: Callable[..., Any]              # (cfg, params, tokens, cache)
+    decode_step: Callable[..., Any]
+    # (cfg, params, lane cache, tokens (B, 1), pos, *, kv_quant, per_lane)
+    prefill_chunk: Callable[..., Any]
+    # (cfg, params, lane cache, tokens (B, S), pos, *, kv_quant); the
+    # gathered backend's chunk step over a standalone batch-1 cache
     init_cache_specs: Callable[..., Any]     # (cfg, batch, max_len)
+    init_cache: Callable[..., Any]           # (cfg, batch, max_len, device)
     mixed_step: Callable[..., Any]
     # (cfg, params, paged cache, table, tokens (S, Q), poss (S,),
     #  q_lens (S,), *, paged_flags, page_size) -> (logits (S, Q, V), cache)
@@ -82,5 +91,9 @@ def cache_layout(api: ModelAPI, cfg, slot_len: int):
 
 def get_model(cfg) -> ModelAPI:
     transformer.check_supported(cfg)
-    return ModelAPI(init_cache_specs=transformer.init_cache_specs,
+    return ModelAPI(forward=transformer.forward, prefill=transformer.prefill,
+                    decode_step=transformer.decode_step,
+                    prefill_chunk=transformer.prefill_chunk,
+                    init_cache_specs=transformer.init_cache_specs,
+                    init_cache=transformer.init_cache,
                     mixed_step=transformer.mixed_step)

@@ -70,15 +70,17 @@ def _top_k(probs: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def moe_apply(p: dict, x: torch.Tensor, cfg):
+def moe_apply(p: dict, x: torch.Tensor, cfg, *, regroup: bool = True):
     """x (B, S, D) -> (out (B, S, D), aux load-balance loss, f32 scalar).
 
     Every row of ``x`` is routed and takes capacity, padded rows of a
-    ragged mixed block included, as in the reference."""
+    ragged mixed block included, as in the reference.  ``regroup=False``
+    keeps every batch row its own sequence for decode too (the reference's
+    per-slot decode, where a vmap over slots hands it one row at a time)."""
     b0, s0, d = x.shape
     e, k = cfg.num_experts, cfg.top_k
     # decode (s=1): regroup tokens across the batch so capacity is shared
-    if s0 == 1 and b0 > 1:
+    if s0 == 1 and b0 > 1 and regroup:
         g = next((c for c in _DECODE_GROUPS if b0 % c == 0), 1)
         b, s = g, b0 // g
         x = x.reshape(b, s, d)

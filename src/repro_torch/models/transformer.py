@@ -1,5 +1,4 @@
-"""Decoder-only LM over paged KV pools (port of the serving half of
-``repro.models.transformer``).
+"""Decoder-only LM (port of ``repro.models.transformer``).
 
 Params are nested dicts of tensors in the same tree paths as the
 reference's ``init_params`` (``embed``, ``final_norm``, ``lm_head``,
@@ -7,11 +6,16 @@ reference's ``init_params`` (``embed``, ``final_norm``, ``lm_head``,
 carries across leaf for leaf (:func:`params_from_numpy`).  The scan over
 repeats becomes a Python loop over the stacked leaves' first axis.
 
-Ported so far: dense attention blocks (kind ``"attn"``, the minitron
-stack), MLA blocks with a dense MLP or shared + routed experts
-(``"mla_dense"``, ``"mla_moe"``, the deepseek-v2 stack) and the ragged
-:func:`mixed_step` of the in-kernel backend, with fp pools or
-``kv_codec="cluster"`` int8 code pools plus a scale-pool tree.  Other
+Ported: dense attention blocks (kinds ``"attn"``, the minitron stack, and
+``"swa"``, a rolling-window lane), MLA blocks with a dense MLP or shared +
+routed experts (``"mla_dense"``, ``"mla_moe"``, the deepseek-v2 stack),
+and every step function of the reference's serving and scoring paths:
+:func:`forward`/:func:`backbone` without a cache, monolithic
+:func:`prefill`, :func:`prefill_chunk` and :func:`decode_step` over lane
+caches (``kv_quant`` rounds new K/V through the codec, as the gathered
+backend does under ``kv_codec="cluster"``), and the ragged
+:func:`mixed_step` of the in-kernel backend over page pools, fp or int8
+code pools plus a scale-pool tree.  Caches are updated in place.  Other
 block kinds raise ``NotImplementedError``.
 """
 
@@ -28,7 +32,7 @@ from repro_torch.tree import params_from_numpy, tree_map  # noqa: F401
 
 MOE_KINDS = ("swa_moe", "mla_moe", "moe")
 MLA_KINDS = ("mla_dense", "mla_moe")
-PORTED_KINDS = ("attn", "mla_dense", "mla_moe")
+PORTED_KINDS = ("attn", "swa", "mla_dense", "mla_moe")
 
 
 def check_supported(cfg) -> None:
@@ -59,43 +63,45 @@ def block_init(kind: str, cfg, gen, dtype, device) -> dict:
     return p
 
 
-def block_apply(kind: str, cfg, p: dict, x: torch.Tensor, *, cache, pos,
-                paged, q_lens=None, scales=None):
-    """-> (x, cache), or (x, cache, scales) with ``scales``: attention (GQA,
-    or MLA for the MLA kinds) over the page pools, then the MLP (binarised
-    when ``cfg.binarize_mlp``, the compressed serving mode) or the MoE.
-    ``scales`` holds this block's codec scale pools (same keys as the
-    cache) and implies int8 code pools.  The MoE's aux loss is a training
-    term: serving computes it and drops it, as the reference's
-    ``mixed_step`` does."""
+def block_apply(kind: str, cfg, p: dict, x: torch.Tensor, *, cache=None,
+                pos=None, prefix_len: int = 0, paged=None, q_lens=None,
+                scales=None, kv_quant: bool = False,
+                per_lane: bool = False):
+    """-> (x, aux loss, None for a block without an MoE): attention (GQA,
+    or MLA for the MLA kinds), then the MLP (binarised when
+    ``cfg.binarize_mlp``, the compressed serving mode) or the MoE.
+    ``cache`` (and under the codec ``scales``, this block's scale pools
+    with the cache's keys, implying int8 code pools) is updated in place; ``paged`` says it holds page pools, else lanes
+    (see ``attention.attn_apply``).  ``per_lane`` runs every batch row as
+    its own batch-1 sequence, as the reference's vmap over slots does:
+    the MoE then shares no capacity across rows."""
     h = rms_norm(p["ln1"], x, cfg.norm_eps)
     kw = dict(cache=cache, pos=pos, paged=paged, q_lens=q_lens,
-              scales=scales)
+              scales=scales, kv_quant=kv_quant)
     if kind in MLA_KINDS:
-        y, *state = attn.mla_apply(p["attn"], h, cfg, **kw)
+        y = attn.mla_apply(p["attn"], h, cfg, **kw)[0]
     else:
-        y, *state = attn.attn_apply(p["attn"], h, cfg, kind=kind, **kw)
+        y = attn.attn_apply(p["attn"], h, cfg, kind=kind,
+                            prefix_len=prefix_len, **kw)[0]
     x = x + y
+    aux = None
     if "moe" in p or "mlp" in p:
         h2 = rms_norm(p["ln2"], x, cfg.norm_eps)
         if kind in MOE_KINDS:
-            y2, _aux = moe_mod.moe_apply(p["moe"], h2, cfg)
+            y2, aux = moe_mod.moe_apply(p["moe"], h2, cfg,
+                                        regroup=not per_lane)
         else:
             y2 = mlp_apply(p["mlp"], h2, cfg.mlp_act,
                            binarized=cfg.binarize_mlp)
         x = x + y2
-    return (x, *state)
+    return x, aux
 
 
 def block_cache_spec(kind: str, cfg, batch: int, max_len: int) -> dict:
     """Shape/dtype stand-ins (meta tensors) of one block's KV cache."""
     if kind in MLA_KINDS:
         return attn.mla_cache_spec(cfg, batch, max_len)
-    window = cfg.window if kind in ("swa", "local") else 0
-    length = min(window, max_len) if window else max_len
-    shp = (batch, length, cfg.num_kv_heads, cfg.head_dim)
-    return {"k": torch.empty(shp, dtype=cfg.torch_dtype, device="meta"),
-            "v": torch.empty(shp, dtype=cfg.torch_dtype, device="meta")}
+    return attn.attn_cache_spec(cfg, kind, batch, max_len)
 
 
 # ---------------------------------------------------------------------------
@@ -152,6 +158,16 @@ def init_cache_specs(cfg, batch: int, max_len: int) -> dict:
     return cache
 
 
+def init_cache(cfg, batch: int, max_len: int, device="cuda") -> dict:
+    """A zeroed lane cache tree on ``device``: leaves ``(batch, max_len,
+    ...)`` (a rolling window's ``min(window, max_len)`` rows), scan-stacked
+    leaves with a leading repeats axis."""
+    device = resolve_device(device)
+    return tree_map(lambda s: torch.zeros(s.shape, dtype=s.dtype,
+                                          device=device),
+                    init_cache_specs(cfg, batch, max_len))
+
+
 # ---------------------------------------------------------------------------
 # serving step
 # ---------------------------------------------------------------------------
@@ -169,26 +185,99 @@ def _unembed(cfg, params, x):
     return softcap(x @ head, cfg.final_logit_softcap).float()
 
 
-def _run_stack(cfg, params, cache, x, *, pos, ctx, q_lens, scales=None):
-    """prefix + scan repeats + suffix blocks over the page pools and, under
-    the codec, the scale pools (a tree mirroring ``cache``), which each
-    block updates in place -> x.  Scan-stacked pools are sliced per repeat
-    (``a[r]``, a view), so every write lands in the caller's trees."""
-    def block(kind, p, x, at):
-        return block_apply(kind, cfg, p, x, cache=at(cache), pos=pos,
-                           paged=ctx, q_lens=q_lens,
-                           scales=None if scales is None else at(scales))[0]
+def _run_stack(cfg, params, cache, x, *, pos=None, prefix_len: int = 0,
+               ctx=None, q_lens=None, scales=None, kv_quant: bool = False,
+               per_lane: bool = False):
+    """prefix + scan repeats + suffix blocks -> (x, the MoE blocks' aux
+    losses in block order; only the scoring forward sums them).
 
+    The one block walker behind every step function; they differ in how
+    ``x`` is embedded, which positions ride along and which logits are
+    kept.  ``cache`` (None: no cache, the scoring forward) holds lanes, or
+    page pools with ``ctx`` (an ``attention.PagedContext``); ``scales``
+    (the codec's scale-pool tree mirroring ``cache``) rides the pools.
+    Every block updates its part in place: scan-stacked leaves are sliced
+    per repeat (``a[r]``, a view), so writes land in the caller's trees."""
+    def block(kind, p, x, at):
+        return block_apply(
+            kind, cfg, p, x, cache=None if cache is None else at(cache),
+            pos=pos, prefix_len=prefix_len, paged=ctx, q_lens=q_lens,
+            scales=None if scales is None else at(scales),
+            kv_quant=kv_quant, per_lane=per_lane)
+
+    auxes = []
     for i, kind in enumerate(cfg.prefix_kinds):
-        x = block(kind, params["prefix"][i], x, lambda t: t["prefix"][i])
+        x, a = block(kind, params["prefix"][i], x, lambda t: t["prefix"][i])
+        auxes.append(a)
     for r in range(cfg.scan_repeats):
         for i, kind in enumerate(cfg.scan_pattern):
-            x = block(kind, tree_map(lambda a: a[r], params["scan"][f"b{i}"]),
-                      x, lambda t: tree_map(lambda a: a[r],
+            x, a = block(kind, tree_map(lambda t: t[r],
+                                        params["scan"][f"b{i}"]), x,
+                         lambda t: tree_map(lambda a: a[r],
                                             t["scan"][f"b{i}"]))
+            auxes.append(a)
     for i, kind in enumerate(cfg.suffix_kinds):
-        x = block(kind, params["suffix"][i], x, lambda t: t["suffix"][i])
-    return x
+        x, a = block(kind, params["suffix"][i], x, lambda t: t["suffix"][i])
+        auxes.append(a)
+    return x, [a for a in auxes if a is not None]
+
+
+def backbone(cfg, params, tokens):
+    """Embed + layer stack + final norm, no cache -> (hidden (B, S, D),
+    aux loss)."""
+    x, auxes = _run_stack(cfg, params, None,
+                          _embed_step(cfg, params, tokens))
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for a in auxes:
+        aux = aux + a
+    return rms_norm(params["final_norm"], x, cfg.norm_eps), aux
+
+
+def forward(cfg, params, tokens):
+    """Scoring forward -> (logits (B, S, V) f32, aux loss)."""
+    x, aux = backbone(cfg, params, tokens)
+    return _unembed(cfg, params, x), aux
+
+
+def prefill(cfg, params, tokens, cache):
+    """The whole prompt ``tokens`` (B, S) from position 0 -> (last-token
+    logits (B, 1, V), ``cache`` filled in place)."""
+    x, _ = _run_stack(cfg, params, cache, _embed_step(cfg, params, tokens))
+    x = rms_norm(params["final_norm"], x[:, -1:], cfg.norm_eps)
+    return _unembed(cfg, params, x), cache
+
+
+def prefill_chunk(cfg, params, cache, tokens, pos, *,
+                  kv_quant: bool = False):
+    """One prefill chunk ``tokens`` (B, S) at absolute positions
+    ``pos``..``pos + S - 1`` against a partially filled lane cache ->
+    (last-position logits (B, 1, V), cache updated in place).
+
+    Feeding a prompt's chunks here in order is the gathered backend's
+    chunk loop (the reference's oracle of chunked prefill); ``kv_quant``
+    rounds the chunk's K/V through the codec so later chunks attend to
+    the values the code pools will hold."""
+    x, _ = _run_stack(cfg, params, cache, _embed_step(cfg, params, tokens),
+                      pos=pos, kv_quant=kv_quant)
+    x = rms_norm(params["final_norm"], x[:, -1:], cfg.norm_eps)
+    return _unembed(cfg, params, x), cache
+
+
+def decode_step(cfg, params, cache, tokens, pos, *, kv_quant: bool = False,
+                per_lane: bool = False):
+    """One token per lane, ``tokens`` (B, 1) at ``pos`` (shared, or per
+    lane ``(B,)``), over a filled lane cache -> (logits (B, 1, V), cache
+    updated in place).
+
+    ``kv_quant`` rounds the new row's K/V through the codec before it is
+    written and attended (quantise-then-attend, the kernel's numerics).
+    ``per_lane`` decodes every lane as its own sequence — the reference's
+    per-slot decode, a vmap of this function over slots — so lanes share
+    no MoE capacity."""
+    x, _ = _run_stack(cfg, params, cache, _embed_step(cfg, params, tokens),
+                      pos=pos, kv_quant=kv_quant, per_lane=per_lane)
+    x = rms_norm(params["final_norm"], x, cfg.norm_eps)
+    return _unembed(cfg, params, x), cache
 
 
 def mixed_step(cfg, params, cache, table, tokens, poss, q_lens, *,
@@ -209,16 +298,16 @@ def mixed_step(cfg, params, cache, table, tokens, poss, q_lens, *,
     ``scales`` (``kv_codec="cluster"``): the scale-pool tree, same tree as
     ``cache`` with f32 ``(repeats?, n_pages, page)`` pools, beside int8
     code pools; it is updated in place too and the return grows to
-    ``(logits, cache, scales)``."""
+    ``(logits, cache, scales)``.  Lane leaves beside the pools (rolling
+    windows) are not ported here and raise."""
     if not all(paged_flags):
-        raise NotImplementedError("lane-backed (non-pageable) cache leaves "
-                                  "are not ported yet")
+        raise NotImplementedError("lane-backed cache leaves beside the page "
+                                  "pools are not ported to mixed_step yet")
     if pages_per_step != 1:
         raise NotImplementedError("pages_per_step > 1 is not ported yet")
     ctx = attn.PagedContext(table=table, page_size=page_size)
-    x = _embed_step(cfg, params, tokens)
-    x = _run_stack(cfg, params, cache, x, pos=poss, ctx=ctx, q_lens=q_lens,
-                   scales=scales)
+    x, _ = _run_stack(cfg, params, cache, _embed_step(cfg, params, tokens),
+                      pos=poss, ctx=ctx, q_lens=q_lens, scales=scales)
     x = rms_norm(params["final_norm"], x, cfg.norm_eps)
     if scales is not None:
         return _unembed(cfg, params, x), cache, scales

@@ -3,10 +3,12 @@
 
 Same names and semantics as the reference: ``slot_steps`` /
 ``capacity_steps`` give occupancy, the chunk counters track chunked
-prefill, the page gauges track the KV pool, and the KV gather counters
-record the copies the in-kernel backend avoided (they must read zero
-moved, on the prefill and the decode path), and the codec counters the
-resident KV bytes ``kv_codec="cluster"`` keeps out of the pool.
+prefill, the page gauges track the KV pool, the KV gather counters
+record the copies the gathered backend makes (page gather and scatter a
+decode step, the install copy of a standalone prefill) and those the
+in-kernel backend avoids (its mixed path copies nothing), the codec
+counters the resident KV bytes ``kv_codec="cluster"`` keeps out of the
+pool, and ``waves`` the wave-mode admission rounds.
 Prefix-sharing and speculation counters, and the Prometheus registry,
 come with those features in later slices.
 """
@@ -38,6 +40,7 @@ class ServeMetrics:
     capacity_steps: int = 0    # sum over decode steps of total slots
     prefill_s: float = 0.0
     decode_s: float = 0.0
+    waves: int = 0                     # admission rounds (wave mode only)
     prefill_chunks: int = 0            # chunked-prefill chunk count
     prefill_chunk_tokens: int = 0      # prompt tokens pushed through chunks
     decode_stall_s: float = 0.0        # chunk time while decoders waited
@@ -74,6 +77,10 @@ class ServeMetrics:
         self.prefills += n_requests
         self.prefill_s += dt
         self.tokens_generated += tokens
+
+    def record_wave(self) -> None:
+        """One drain-then-admit round (wave-mode scheduling only)."""
+        self.waves += 1
 
     def record_prefill_chunk(self, n_tokens: int, dt: float,
                              stalled: bool = False) -> None:

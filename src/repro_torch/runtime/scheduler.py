@@ -1,34 +1,44 @@
-"""Slot-level continuous batching over paged KV, on the mixed-step path
-(port of ``repro.runtime.scheduler`` for ``attn_backend="cuda_paged"``
-with chunked prefill).
+"""Slot-level continuous batching over per-slot KV lanes or paged KV
+(port of ``repro.runtime.scheduler``).
 
-Every scheduler iteration, active slots contribute their decode token and
-prefilling slots up to one prompt chunk to a *single* ragged
-``mixed_step`` over the page pools (``Scheduler._mixed_tick``, the
-reference's ``_mixed_tick``): chunk K/V is written straight into the
-slot's pages, there is no standalone prefill cache and no install copy,
-and the per-iteration KV gather bytes are zero on the prefill and decode
-paths alike.
+Two attention backends, as in the reference (``attn_backend``):
+
+* ``"cuda_paged"`` with ``prefill_chunk`` set: every iteration, active
+  slots contribute their decode token and prefilling slots up to one prompt
+  chunk to a *single* ragged ``mixed_step`` over the page pools
+  (``Scheduler._mixed_tick``): chunk K/V is written straight into the
+  slot's pages and the paged-attention kernel walks the page tables, so
+  no KV is copied on the prefill or the decode path.  With monolithic
+  prefill (``prefill_chunk=None``) a request is prefilled alone into a
+  batch-1 lane cache at admission, installed into its pages (encoded into
+  the code pools under the codec), and then decodes on the kernel at Q=1.
+* ``"gathered"`` (the reference's oracle): each decode step copies every
+  slot's pages into contiguous lane views, decodes all slots in one
+  batched call of plain PyTorch attention, and scatters the pages back
+  (under the codec: decoded at gather, re-encoded at scatter, which is
+  idempotent, so untouched pages round-trip bit for bit).  Prompts are
+  prefilled at admission, or chunk by chunk on a standalone batch-1 cache
+  (``_prefill_tick``), and installed into the pool when done.
+  ``kv_page_size=None`` keeps one monolithic lane per slot and no pages.
+
+``mode="wave"`` admits only into a drained pool, up to ``batch_size``
+queued requests of the head request's length bucket a round.
 
 Invariants, as in the reference:
 
   * slot lifecycle — FREE (req is None) -> PREFILLING (chunks write into
-    the slot's pages) -> ACTIVE (decode advances ``pos``) -> FREE (retire
-    releases pages and reservations);
+    the slot's pages or its standalone cache) -> ACTIVE (decode advances
+    ``pos``) -> FREE (retire releases pages and reservations);
   * page ownership — a physical page is referenced by at most one slot's
-    table row; page 0 is the dummy sink that absorbs padded writes and is
-    never read as a valid position;
+    table row; page 0 is the dummy sink that absorbs padded and free-lane
+    writes and is never read as a valid position;
   * no mid-flight OOM — admission reserves every page the request can ever
     need; allocation during serving draws from that reservation.
 
-Under ``kv_codec="cluster"`` the page pools hold int8 codebook codes with
-one f32 scale per (page, token) in a scale-pool tree beside them; each
-step encodes its K/V into them and the kernel decodes them in place.
-
 Not ported yet, and refused with ``NotImplementedError`` rather than
-served some other way: the ``gathered`` backend, monolithic prefill,
-``mode="wave"``, prefix sharing, speculative decoding and the kernel
-autotuner.
+served some other way: prefix sharing, speculative decoding, the kernel
+autotuner, and rolling-window lane leaves beside the page pools under
+``cuda_paged``.
 """
 
 from __future__ import annotations
@@ -44,7 +54,6 @@ from repro_torch import resolve_device
 from repro_torch.kernels import kv_codec as kv_codec_mod
 from repro_torch.kernels.kv_codec import KV_CODECS
 from repro_torch.models.api import (ATTN_BACKENDS, cache_layout, get_model,
-                                    supports_chunked_prefill,
                                     supports_paged_attention)
 from repro_torch.runtime.decode_cache import DecodeTileCache, EvictionPolicy
 from repro_torch.runtime.metrics import ServeMetrics
@@ -52,7 +61,7 @@ from repro_torch.runtime.telemetry import NULL_TELEMETRY
 from repro_torch.runtime.weight_store import WeightStore
 from repro_torch.tree import tree_leaves, tree_map
 
-MAX_PROMPT_LEN = 2048     # longest prompt submit() accepts
+DEFAULT_BUCKETS = (16, 32, 64, 128, 256, 512, 1024, 2048)
 SLOT_LEN_QUANTUM = 16      # slot cache lengths round up to this many tokens
 DUMMY_PAGE = 0             # physical page that absorbs padded writes
 
@@ -132,6 +141,28 @@ class PageAllocator:
             self._allocated.remove(pid)
             self._free.append(pid)
 
+    def add_pages(self, page_ids) -> None:
+        """Grow the pool (``SlotPool.grow_pages``)."""
+        ids = list(page_ids)
+        assert not (set(ids) & self._allocated) and \
+            not (set(ids) & set(self._free))
+        self.total += len(ids)
+        self._free.extend(sorted(ids, reverse=True))
+
+
+
+
+def _on_device(a, device) -> torch.Tensor:
+    """Host int array -> int32 tensor on ``device``."""
+    return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
+
+
+def _unflatten(specs, leaves):
+    """``leaves`` in :func:`tree_leaves` order, rebuilt in ``specs``'s
+    tree."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), specs)
+
 
 class ServeEngine:
     """Model + compressed weight store + decode cache + metrics, on
@@ -167,10 +198,9 @@ class ServeEngine:
         self.cfg = cfg
         self.api = get_model(cfg)
         self._raw_params = None if self.compressed else params
-
-    @property
-    def supports_chunked_prefill(self) -> bool:
-        return supports_chunked_prefill(self.cfg)
+        # each cache leaf's batch axis: a lane pool (n_slots, *leaf) is
+        # viewed with its slot axis there for the batched slot decode
+        self._batch_axes = cache_layout(self.api, cfg, SLOT_LEN_QUANTUM)[0]
 
     @property
     def supports_paged_attention(self) -> bool:
@@ -185,14 +215,11 @@ class ServeEngine:
         tree beside int8 code pools, updated in place too; the return
         grows to ``(logits, cache, scales)``."""
         dev = self.device
-
-        def on_dev(a):
-            return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
-
         with torch.no_grad():
             return self.api.mixed_step(
-                self.cfg, params, kcache, on_dev(table), on_dev(toks),
-                on_dev(poss), on_dev(q_lens), paged_flags=paged_flags,
+                self.cfg, params, kcache, _on_device(table, dev),
+                _on_device(toks, dev), _on_device(poss, dev),
+                _on_device(q_lens, dev), paged_flags=paged_flags,
                 page_size=page_size, scales=kv_scales)
 
     def step_params(self):
@@ -209,6 +236,73 @@ class ServeEngine:
     def cache_len(self, prompt_len: int, gen: int) -> int:
         return self.pos_offset(prompt_len) + gen
 
+    def prefill(self, params, tokens, cache):
+        """Whole-prompt prefill of ``tokens`` (B, S) into ``cache`` ->
+        (last-token logits (B, 1, V), cache filled in place)."""
+        with torch.no_grad():
+            return self.api.prefill(self.cfg, params, tokens, cache)
+
+    def prefill_request(self, params, prompt: np.ndarray, slot_len: int):
+        """Batch-1 exact-position prefill -> (first generated token, filled
+        slot cache with leaves (1, ...))."""
+        cache = self.fresh_slot_cache(slot_len)
+        logits, cache = self.prefill(
+            params, _on_device(np.asarray(prompt)[None], self.device), cache)
+        last = logits[0, -1]
+        if not bool(torch.isfinite(last).all()):
+            raise RuntimeError(
+                "non-finite prefill logits (compressed reconstruction or "
+                "model numerics are broken)")
+        return int(torch.argmax(last)), cache
+
+    def fresh_slot_cache(self, slot_len: int):
+        """Zeroed batch-1 lane cache for a prefill."""
+        return self.api.init_cache(self.cfg, 1, slot_len, self.device)
+
+    def prefill_chunk_step(self, params, cache, chunk: np.ndarray,
+                           pos: int, *, kv_quant: bool = False):
+        """One prompt chunk at absolute positions pos..pos+len-1 ->
+        (last-position logits, cache updated in place).  ``kv_quant``
+        rounds the chunk's K/V through the cluster codec (the gathered
+        backend under ``kv_codec="cluster"``)."""
+        toks = _on_device(np.asarray(chunk)[None], self.device)
+        with torch.no_grad():
+            return self.api.prefill_chunk(self.cfg, params, cache, toks, pos,
+                                          kv_quant=kv_quant)
+
+    def slot_decode(self, params, pooled_cache, toks, poss, *,
+                    kv_quant: bool = False):
+        """One decode step for every slot: ``pooled_cache`` leaves
+        (S, *lane leaf), toks (S, 1, 1), poss (S,) host int arrays ->
+        (logits (S, 1, 1, V), pooled cache updated in place).
+
+        The reference vmaps a batch-1 decode over the slots; here the
+        slots ride one batched call with per-lane positions over views
+        of the pool that put the slot axis where the batch axis sits, and
+        ``per_lane`` keeps their MoE capacity apart, as the vmap does."""
+        axes = iter(self._batch_axes)
+
+        def lane_view(a):
+            bax = next(axes)
+            return a.squeeze(bax + 1).movedim(0, bax)
+
+        lanes = tree_map(lane_view, pooled_cache)
+        s_n = toks.shape[0]
+        with torch.no_grad():
+            logits, _ = self.api.decode_step(
+                self.cfg, params, lanes,
+                _on_device(np.asarray(toks).reshape(s_n, 1), self.device),
+                _on_device(poss, self.device), kv_quant=kv_quant,
+                per_lane=True)
+        return logits[:, None], pooled_cache
+
+    def decode_step(self, params, cache, tok, pos: int):
+        """Single shared-position decode of a batched lane cache (slot
+        serving goes through :meth:`slot_decode`)."""
+        with torch.no_grad():
+            return self.api.decode_step(
+                self.cfg, params, cache, _on_device(tok, self.device), pos)
+
     def stats_line(self) -> str:
         return self.metrics.stats_line(self.cache if self.compressed
                                        else None)
@@ -219,8 +313,10 @@ class Slot:
     """One decode lane: its request and per-slot state.  ``tok`` is the
     most recent token (the next decode input), ``pos`` its absolute
     position; while ``prefilling``, ``prefill_cursor`` counts prompt
-    tokens already written into the slot's pages.  ``reserved_left`` is
-    the slot's outstanding page reservation."""
+    tokens already written, into the slot's pages on the mixed path or
+    into ``pcache`` (a standalone batch-1 lane cache, installed into the
+    pool when the last chunk lands) on the chunk loop.  ``reserved_left``
+    is the slot's outstanding page reservation."""
 
     index: int
     req: Request | None = None
@@ -228,56 +324,96 @@ class Slot:
     tok: int = 0
     prefilling: bool = False
     prefill_cursor: int = 0
+    pcache: object = None
     reserved_left: int = 0
 
 
 class SlotPool:
-    """Fixed decode slots over shared KV page pools (identity layout).
+    """Fixed decode slots over one pooled KV cache, in one of three
+    layouts:
 
-    Each pageable cache leaf ``(repeats?, 1, slot_len, KH, D)`` becomes a
-    pool ``(repeats?, n_pages, page_size, KH, D)`` on the engine's device,
-    handed with the page table to ``mixed_step``, whose kernel walks the
-    table in place.  Pages are allocated on demand as a slot's writes
-    reach them and released at retire.
+    * ``page_size=None``: monolithic — each cache leaf is one pool
+      ``(n_slots, *lane leaf)`` (``(n_slots, 1, slot_len, ...)``; scan
+      leaves ``(n_slots, R, 1, slot_len, ...)``), slot ``i`` its lane ``i``,
+      decoded in place by the batched slot decode;
+    * ``backend="gathered"``: each pageable leaf (one whose length scales
+      with ``slot_len``, by ``models.api.cache_layout``'s probe) becomes a
+      page pool ``(page_capacity, *lead, page_size, *rest)``; a decode step
+      gathers every slot's pages into lane views, decodes them, and
+      scatters them back (``gather_bytes_per_step``: two copies of every
+      paged leaf's per-slot views).  Leaves that do not page
+      (rolling-window KV) stay lanes ``(n_slots, *lane leaf)``.  Under
+      ``kv_codec="cluster"`` the pools hold int8 codes with
+      ``page_scales`` beside them, ``(page_capacity, *lead, page_size)``
+      f32;
+    * ``backend="cuda_paged"``: each leaf becomes a pool ``(repeats?,
+      page_capacity, page_size, KH, D)`` in the kernel's layout, handed
+      with the page table to ``mixed_step``, whose kernel walks the table
+      in place; ``kscales`` is the codec's scale-pool tree ``(repeats?,
+      page_capacity, page_size)``.  Lane leaves beside these pools are not
+      ported and raise.
 
-    ``kv_codec="cluster"``: the pools hold int8 codebook codes and
-    ``kscales`` is a tree of the same shape with one f32 scale pool
-    ``(repeats?, n_pages, page_size)`` at each leaf; ``page_bytes_fp`` and
-    ``page_bytes_resident`` give a physical page's bytes over every leaf
-    without and with the codec."""
+    Pages are allocated on demand as a slot's writes reach them and
+    released at retire; page 0 is the dummy sink.  ``page_capacity``
+    (default ``n_pages``) sizes the buffers: :meth:`grow_pages` within it
+    only adds free pages.  ``page_bytes_fp`` and ``page_bytes_resident``
+    give a physical page's bytes over every paged leaf without and with
+    the codec."""
 
     def __init__(self, engine: ServeEngine, n_slots: int, slot_len: int,
-                 *, page_size: int, n_pages: int | None = None,
-                 backend: str = "cuda_paged", kv_codec: str = "none"):
+                 *, page_size: int | None = None,
+                 n_pages: int | None = None, backend: str = "cuda_paged",
+                 page_capacity: int | None = None, kv_codec: str = "none"):
         if backend not in ATTN_BACKENDS:
-            raise NotImplementedError(
-                f"attention backend {backend!r} is not ported; this port "
-                f"serves {ATTN_BACKENDS}")
+            raise ValueError(f"unknown attention backend {backend!r}; "
+                             f"choose from {ATTN_BACKENDS}")
         if kv_codec not in KV_CODECS:
             raise ValueError(f"unknown kv codec {kv_codec!r}; "
                              f"choose from {KV_CODECS}")
-        self.codec = kv_codec == "cluster"
-        if page_size is None or page_size <= 0:
-            raise ValueError(f"page_size must be positive: {page_size}")
         self.engine = engine
         self.n_slots = n_slots
         self.page_size = page_size
+        self.paged = page_size is not None
         self.backend = backend
-        slot_len = -(-slot_len // page_size) * page_size
+        self.codec = kv_codec == "cluster"
+        if backend == "cuda_paged" and not self.paged:
+            raise ValueError("the cuda_paged backend needs paged KV lanes; "
+                             "set a page_size")
+        if self.codec and not self.paged:
+            raise ValueError("kv_codec='cluster' compresses the page "
+                             "pools; set a kv page_size")
+        if self.paged:
+            if page_size <= 0:
+                raise ValueError(f"page_size must be positive: {page_size}")
+            slot_len = -(-slot_len // page_size) * page_size
         self.slot_len = slot_len
-        self.pages_per_slot = slot_len // page_size
+        self.pages_per_slot = slot_len // page_size if self.paged else 0
         self.slots = [Slot(i) for i in range(n_slots)]
-        specs = engine.api.init_cache_specs(engine.cfg, 1, slot_len)
-        leaves = tree_leaves(specs)
-        # the reference's install-copy size: what a gathered admission
-        # would have moved, counted as avoided by mixed-step prefill
+        self.kscales = None          # cuda_paged codec scale-pool tree
+        self.page_scales = []        # gathered codec scale pools
+        self.page_bytes_fp = self.page_bytes_resident = 0
+        self._specs = engine.api.init_cache_specs(engine.cfg, 1, slot_len)
+        leaves = tree_leaves(self._specs)
+        # install() copies one prefilled batch-1 cache into the slot's
+        # pages and lanes; the mixed-step path never installs
         self.install_bytes = sum(s.numel() * s.element_size()
                                  for s in leaves)
-        _, self._paged_axis = cache_layout(engine.api, engine.cfg, slot_len)
+        dev = engine.device
+        if not self.paged:
+            self.cache = tree_map(
+                lambda s: torch.zeros((n_slots, *s.shape), dtype=s.dtype,
+                                      device=dev), self._specs)
+            self.gather_bytes_per_step = 0
+            self.gather_bytes_avoided_per_step = 0
+            return
+        self._batch_axis, self._paged_axis = cache_layout(
+            engine.api, engine.cfg, slot_len)
         self.paged_flags = tuple(ax is not None for ax in self._paged_axis)
-        if not all(self.paged_flags):
-            raise NotImplementedError("lane-backed (non-pageable) cache "
-                                      "leaves are not ported yet")
+        if backend == "cuda_paged" and not all(self.paged_flags):
+            raise NotImplementedError(
+                "rolling-window lane leaves beside the page pools under "
+                "attn_backend='cuda_paged' are not ported to repro_torch "
+                "yet; serve this arch with attn_backend='gathered'")
         if n_pages is None:
             n_pages = n_slots * self.pages_per_slot + 1   # +1: dummy sink
         if n_pages < self.pages_per_slot + 1:
@@ -285,48 +421,161 @@ class SlotPool:
                 f"n_pages {n_pages} cannot back even one full slot "
                 f"({self.pages_per_slot} pages + dummy)")
         self.n_pages = n_pages
+        self.page_capacity = cap = max(page_capacity or 0, n_pages)
         self.allocator = PageAllocator(range(1, n_pages))   # 0 = dummy
         self.table = np.zeros((n_slots, self.pages_per_slot), np.int32)
-        # the gathered oracle copies every paged leaf's per-slot view twice
-        # per step; the kernel backend copies none of it
-        self.gather_bytes_per_step = 0
-        self.gather_bytes_avoided_per_step = 2 * n_slots * sum(
-            s.numel() * s.element_size() for s in leaves)
-        # a physical page's bytes over every leaf: fp at rest vs the
+        # the gathered backend copies every paged leaf's per-slot view
+        # twice per step (pool -> view, view -> pool); the kernel backend
+        # copies none of it
+        view_bytes = 2 * n_slots * sum(
+            s.numel() * s.element_size()
+            for s, ax in zip(leaves, self._paged_axis) if ax is not None)
+        # a physical page's bytes over every paged leaf: fp at rest vs the
         # codec's int8 codes + one f32 scale per (page, token)
-        fp_page = codec_page = 0
         for spec, ax in zip(leaves, self._paged_axis):
+            if ax is None:
+                continue
             elems = spec.numel() // spec.shape[ax] * page_size
             feat = int(np.prod(spec.shape[ax + 1:])) or 1
-            fp_page += elems * spec.element_size()
-            codec_page += elems + (elems // feat) * 4
-        self.page_bytes_fp = fp_page
-        self.page_bytes_resident = codec_page if self.codec else fp_page
+            self.page_bytes_fp += elems * spec.element_size()
+            self.page_bytes_resident += elems + (elems // feat) * 4 \
+                if self.codec else elems * spec.element_size()
+        code_dtype = (lambda s: torch.int8 if self.codec else s.dtype)
+        if backend == "cuda_paged":
+            self.gather_bytes_per_step = 0
+            self.gather_bytes_avoided_per_step = view_bytes
 
-        def pools(leaf):
-            """One pool per cache leaf: (repeats?, n_pages, page_size),
-            then the trailing dims and dtype ``leaf(spec, ax)`` gives."""
-            axes = iter(self._paged_axis)
+            def pools(leaf):
+                """One pool per leaf: its batch axis becomes the physical
+                page axis, its length axis the page rows."""
+                axes = iter(self._paged_axis)
 
-            def make(spec):
-                ax = next(axes)
-                tail, dtype = leaf(spec, ax)
-                return torch.zeros((*spec.shape[:ax - 1], n_pages,
-                                    page_size, *tail), dtype=dtype,
-                                   device=engine.device)
-            return tree_map(make, specs)
+                def make(spec):
+                    ax = next(axes)
+                    tail, dtype = leaf(spec, ax)
+                    return torch.zeros((*spec.shape[:ax - 1], cap,
+                                        page_size, *tail), dtype=dtype,
+                                       device=dev)
+                return tree_map(make, self._specs)
 
-        self.kcache = pools(lambda spec, ax: (
-            spec.shape[ax + 1:], torch.int8 if self.codec else spec.dtype))
-        self.kscales = pools(lambda spec, ax: ((), torch.float32)) \
-            if self.codec else None
+            self.kcache = pools(lambda spec, ax: (spec.shape[ax + 1:],
+                                                  code_dtype(spec)))
+            self.kscales = pools(lambda spec, ax: ((), torch.float32)) \
+                if self.codec else None
+            return
+        self.gather_bytes_per_step = view_bytes
+        self.gather_bytes_avoided_per_step = 0
+        self.pages = [
+            torch.zeros((cap, *s.shape[:ax], page_size, *s.shape[ax + 1:]),
+                        dtype=code_dtype(s), device=dev)
+            for s, ax in zip(leaves, self._paged_axis) if ax is not None]
+        self.page_scales = [
+            torch.zeros((cap, *s.shape[:ax], page_size),
+                        dtype=torch.float32, device=dev)
+            for s, ax in zip(leaves, self._paged_axis)
+            if ax is not None] if self.codec else []
+        self.unpaged = [
+            torch.zeros((n_slots, *s.shape), dtype=s.dtype, device=dev)
+            for s, ax in zip(leaves, self._paged_axis) if ax is None]
+
+    # -- gathered backend: page pools <-> lane views ------------------------
+    def _gather(self, table: torch.Tensor):
+        """Every slot's pages as lane views (S, *lane leaf) — decoded to
+        the leaf dtype under the codec — and the lane leaves themselves."""
+        views, pi, ui = [], 0, 0
+        for spec, ax in zip(tree_leaves(self._specs), self._paged_axis):
+            if ax is None:
+                views.append(self.unpaged[ui])
+                ui += 1
+                continue
+            v = self.pages[pi][table]          # (S, P, *lead, page, *rest)
+            if self.codec:
+                sc = self.page_scales[pi][table]    # (S, P, *lead, page)
+                v = kv_codec_mod.decode(
+                    v, sc.reshape(*sc.shape, *(1,) * (v.ndim - sc.ndim))
+                ).to(spec.dtype)
+            pi += 1
+            v = v.movedim(1, 1 + ax)           # (S, *lead, P, page, *rest)
+            views.append(v.reshape(*v.shape[:1 + ax], self.slot_len,
+                                   *v.shape[3 + ax:]))
+        return _unflatten(self._specs, views)
+
+    def _put_pages(self, pi: int, idx, v: torch.Tensor, rest: int) -> None:
+        """Write page-major values ``v`` (..., page, *rest) into pool
+        ``pi`` at physical pages ``idx``, re-encoded under the codec
+        (one scale per (page, token) over the ``rest`` trailing dims)."""
+        if self.codec:
+            v, sc = kv_codec_mod.encode(v, tuple(range(v.ndim - rest,
+                                                       v.ndim)))
+            self.page_scales[pi][idx] = sc
+        self.pages[pi][idx] = v.to(self.pages[pi].dtype)
+
+    def _scatter(self, views, table: torch.Tensor) -> None:
+        """Write lane views (S, *lane leaf) back into every slot's pages
+        (the lanes were updated in place)."""
+        pi = 0
+        for leaf, ax in zip(tree_leaves(views), self._paged_axis):
+            if ax is None:
+                continue
+            v = leaf.reshape(*leaf.shape[:1 + ax], self.pages_per_slot,
+                             self.page_size, *leaf.shape[2 + ax:])
+            self._put_pages(pi, table, v.movedim(1 + ax, 1),
+                            leaf.ndim - ax - 2)
+            pi += 1
+
+    def _lane_scatter(self, cache1, row: torch.Tensor, i: int) -> None:
+        """Install a batch-1 lane cache into the pages ``row`` of slot
+        ``i`` and its lane leaves."""
+        pi = ui = 0
+        for leaf, ax in zip(tree_leaves(cache1), self._paged_axis):
+            if ax is None:
+                self.unpaged[ui][i] = leaf
+                ui += 1
+                continue
+            v = leaf.reshape(*leaf.shape[:ax], self.pages_per_slot,
+                             self.page_size, *leaf.shape[ax + 1:])
+            self._put_pages(pi, row, v.movedim(ax, 0), leaf.ndim - ax - 1)
+            pi += 1
+
+    # -- cuda_paged: admission install and page copy ------------------------
+    def _kernel_install(self, cache1, row: torch.Tensor) -> None:
+        """Install a batch-1 lane cache into the slot's pages ``row`` of
+        the kernel-layout pools, encoded into codes + scales under the
+        codec."""
+        sleaves = tree_leaves(self.kscales) if self.codec else None
+        for li, (pool, src, ax) in enumerate(zip(
+                tree_leaves(self.kcache), tree_leaves(cache1),
+                self._paged_axis)):
+            # (*lead, 1, L, *rest) -> (*lead, P, page, *rest)
+            v = src.reshape(*src.shape[:ax - 1], self.pages_per_slot,
+                            self.page_size, *src.shape[ax + 1:])
+            idx = (slice(None),) * (ax - 1) + (row,)
+            if self.codec:
+                v, sc = kv_codec_mod.encode(v, tuple(range(ax + 1, v.ndim)))
+                sleaves[li][idx] = sc
+            pool[idx] = v.to(pool.dtype)
+
+    def _copy_page(self, src: int, dst: int) -> None:
+        """Copy physical page ``src`` into ``dst`` across every pool (and
+        scale pool), in either backend's layout.  Nothing calls it yet: it
+        is the copy-on-write of prefix sharing, which is not ported."""
+        if self.backend == "cuda_paged":
+            pools = list(tree_leaves(self.kcache))
+            if self.codec:
+                pools += tree_leaves(self.kscales)
+            for pool, ax in zip(pools, self._paged_axis * 2):
+                lead = (slice(None),) * (ax - 1)
+                pool[lead + (dst,)] = pool[lead + (src,)]
+            return
+        for pool in self.pages + self.page_scales:
+            pool[dst] = pool[src]
 
     # -- page bookkeeping ---------------------------------------------------
     def pages_needed(self, cache_len: int) -> int:
-        return -(-cache_len // self.page_size)
+        return -(-cache_len // self.page_size) if self.paged else 0
 
     def pages_in_use(self) -> int:
-        return self.allocator.n_allocated
+        return self.allocator.n_allocated if self.paged else 0
 
     def _ensure_pages(self, slot: Slot, upto_pos: int) -> None:
         """Allocate table entries so positions [0, upto_pos] are backed."""
@@ -337,6 +586,38 @@ class SlotPool:
                 self.table[slot.index, j] = self.allocator.alloc()
                 slot.reserved_left -= 1
                 assert slot.reserved_left >= 0
+
+    def grow_pages(self, n_pages: int) -> None:
+        """Grow the logical page pool to ``n_pages``.  Within
+        ``page_capacity`` this is free-list bookkeeping only: no buffer is
+        reallocated.  Beyond it the buffers grow with geometric headroom
+        (at least double)."""
+        assert self.paged, "grow_pages on a monolithic pool"
+        if n_pages <= self.n_pages:
+            return
+        if n_pages > self.page_capacity:
+            new_cap = max(n_pages, 2 * self.page_capacity)
+            extra = new_cap - self.page_capacity
+
+            def grow(pool, axis):
+                pad = torch.zeros((*pool.shape[:axis], extra,
+                                   *pool.shape[axis + 1:]), dtype=pool.dtype,
+                                  device=pool.device)
+                return torch.cat([pool, pad], dim=axis)
+
+            if self.backend == "cuda_paged":
+                axes = iter(self._paged_axis)
+                self.kcache = tree_map(lambda p: grow(p, next(axes) - 1),
+                                       self.kcache)
+                if self.codec:
+                    self.kscales = tree_map(lambda s: grow(s, s.ndim - 2),
+                                            self.kscales)
+            else:
+                self.pages = [grow(p, 0) for p in self.pages]
+                self.page_scales = [grow(s, 0) for s in self.page_scales]
+            self.page_capacity = new_cap
+        self.allocator.add_pages(range(self.n_pages, n_pages))
+        self.n_pages = n_pages
 
     # -- slot queries ---------------------------------------------------
     def free(self) -> list[Slot]:
@@ -352,9 +633,11 @@ class SlotPool:
     def busy(self) -> bool:
         return any(s.req is not None for s in self.slots)
 
-    # -- admission / retire -------------------------------------------------
+    # -- admission / install / retire ---------------------------------------
     def reserve_for(self, slot: Slot, req: Request) -> bool:
         """Reserve every page ``req`` can need; False -> defer admission."""
+        if not self.paged:
+            return True
         need = self.pages_needed(
             self.engine.cache_len(req.prompt_len, req.max_new_tokens))
         if not self.allocator.reserve(need):
@@ -362,15 +645,40 @@ class SlotPool:
         slot.reserved_left = need
         return True
 
+    def install(self, slot: Slot, cache1, tok: int) -> None:
+        """Write a freshly prefilled batch-1 lane cache into the slot's
+        pages and lanes (or its monolithic lane) and flip it to ACTIVE with
+        first token ``tok``; counted as prefill-path copied bytes."""
+        end = self.engine.pos_offset(slot.req.prompt_len)
+        if self.paged:
+            self._ensure_pages(slot, max(end - 1, 0))
+            row = torch.from_numpy(self.table[slot.index].astype(
+                np.int64)).to(self.engine.device)
+            if self.backend == "cuda_paged":
+                self._kernel_install(cache1, row)
+            else:
+                self._lane_scatter(cache1, row, slot.index)
+        else:
+            for pool, leaf in zip(tree_leaves(self.cache),
+                                  tree_leaves(cache1)):
+                pool[slot.index] = leaf
+        slot.prefilling = False
+        slot.pcache = None
+        slot.tok = tok
+        slot.pos = end
+        self.engine.metrics.record_prefill_gather(self.install_bytes, 0)
+
     def retire(self, slot: Slot) -> None:
         """Release the slot's pages and outstanding reservation."""
-        row = self.table[slot.index]
-        self.allocator.release(int(p) for p in row if p != DUMMY_PAGE)
-        row[:] = DUMMY_PAGE
-        if slot.reserved_left:
-            self.allocator.unreserve(slot.reserved_left)
+        if self.paged:
+            row = self.table[slot.index]
+            self.allocator.release(int(p) for p in row if p != DUMMY_PAGE)
+            row[:] = DUMMY_PAGE
+            if slot.reserved_left:
+                self.allocator.unreserve(slot.reserved_left)
         slot.reserved_left = 0
         slot.prefilling = False
+        slot.pcache = None
         slot.req = None
 
     def codec_error_bound(self) -> float:
@@ -378,13 +686,23 @@ class SlotPool:
         pool (max per-token scale / 254); 0.0 when the codec is off."""
         if not self.codec:
             return 0.0
-        top = max((float(s.max()) for s in tree_leaves(self.kscales)),
-                  default=0.0)
+        scales = tree_leaves(self.kscales) \
+            if self.backend == "cuda_paged" else self.page_scales
+        top = max((float(s.max()) for s in scales), default=0.0)
         return float(kv_codec_mod.error_bound(top))
 
+    def code_pools(self) -> list:
+        """The int8 code pools under the codec (for the at-rest report)."""
+        if not self.codec:
+            return []
+        return tree_leaves(self.kcache) if self.backend == "cuda_paged" \
+            else list(self.pages)
+
+    # -- stepping -----------------------------------------------------------
     def mixed_step(self, params, toks, poss, q_lens) -> torch.Tensor:
-        """One ragged mixed step over the pools -> logits (S, Q, V).
-        Pages backing every written position must already be ensured."""
+        """One ragged mixed step over the pools (``cuda_paged``) -> logits
+        (S, Q, V).  Pages backing every written position must already be
+        ensured."""
         logits, self.kcache, *scales = self.engine.mixed_step(
             params, self.kcache, self.table, toks, poss, q_lens,
             paged_flags=self.paged_flags, page_size=self.page_size,
@@ -393,18 +711,80 @@ class SlotPool:
             self.kscales = scales[0]
         return logits
 
+    def decode_logits(self, params) -> torch.Tensor:
+        """One decode step's logits (S, V) for every slot (a free slot's
+        row is padding): each active slot's token is written at its
+        position, but no slot advances.
+
+        The backend seam: ``cuda_paged`` runs a Q=1 ``mixed_step`` on the
+        kernel over the pools in place; ``gathered`` gathers the pages into
+        lane views, runs the batched slot decode and scatters the pages
+        back; monolithic lanes decode in place."""
+        toks = np.zeros((self.n_slots, 1, 1), np.int32)
+        poss = np.zeros(self.n_slots, np.int32)
+        q_lens = np.zeros(self.n_slots, np.int32)
+        for s in self.active():
+            toks[s.index, 0, 0] = s.tok
+            poss[s.index] = s.pos
+            q_lens[s.index] = 1
+            if self.paged:
+                self._ensure_pages(s, s.pos)   # page for this step's write
+        if self.backend == "cuda_paged":
+            return self.mixed_step(params, toks[:, :, 0], poss,
+                                   q_lens)[:, -1]
+        if self.paged:
+            tel = self.engine.telemetry
+            table = torch.from_numpy(self.table.astype(np.int64)).to(
+                self.engine.device)
+            with tel.timed("kv_decode" if self.codec else "kv_gather"):
+                views = self._gather(table)
+            logits, views = self.engine.slot_decode(
+                params, views, toks, poss, kv_quant=self.codec)
+            with tel.timed("kv_encode" if self.codec else "kv_scatter"):
+                self._scatter(views, table)
+            return logits[:, 0, -1]
+        logits, self.cache = self.engine.slot_decode(params, self.cache,
+                                                     toks, poss)
+        return logits[:, 0, -1]
+
+    def decode(self, params) -> list[tuple[Slot, int, bool]]:
+        """One decode step for every slot -> per active slot (slot, next
+        token, logits finite); advances each active slot's (tok, pos)."""
+        active = self.active()
+        last = self.decode_logits(params)
+        nxt = torch.argmax(last, dim=-1).cpu().numpy().astype(np.int32)
+        finite = torch.isfinite(last).all(dim=-1).cpu().numpy()
+        out = []
+        for s in active:
+            s.pos += 1
+            s.tok = int(nxt[s.index])
+            out.append((s, s.tok, bool(finite[s.index])))
+        return out
+
 
 class Scheduler:
-    """Admit -> chunked prefill and decode in one ragged mixed step per
-    iteration -> retire, with admit-on-retire continuous batching.
+    """Admit -> prefill (chunked or monolithic) -> continuous decode ->
+    retire.
 
-    ``prefill_chunk=N`` splits each prompt into N-token chunks;
-    ``prefill_budget`` caps the chunk tokens per iteration (default one
-    chunk, and at least one chunk always runs).  ``kv_page_size=N`` backs
-    the KV with N-token pages (``kv_pages`` overrides the pool size;
-    default fully backs every slot)."""
+    ``mode="continuous"`` (default): admit-on-retire — a freed slot is
+    refilled from the queue before the next step.  ``mode="wave"``:
+    admission waits until every slot has drained, then takes up to
+    ``batch_size`` queued requests sharing the head request's length
+    bucket (``buckets``).
+
+    ``attn_backend="cuda_paged"`` with ``prefill_chunk=N``: prompts go in
+    N-token chunks through the one ragged mixed step of each iteration
+    (``prefill_budget`` caps the chunk tokens an iteration, default one
+    chunk, at least one always runs).  Otherwise prompts are prefilled
+    alone at admission (``prefill_chunk=None``) or chunk by chunk on a
+    standalone cache (the gathered backend's chunk loop, round-robin under
+    the same budget), installed into the pool, and decoded one step for
+    every slot at a time.  ``kv_page_size=N`` backs the KV with N-token
+    pages (``kv_pages`` sets the pool size, default fully backing every
+    slot); ``None`` keeps monolithic lanes (gathered backend only)."""
 
     def __init__(self, engine: ServeEngine, *, batch_size: int = 4,
+                 buckets: tuple[int, ...] = DEFAULT_BUCKETS,
                  mode: str = "continuous", slot_len: int | None = None,
                  prefill_chunk: int | None = None,
                  prefill_budget: int | None = None,
@@ -416,35 +796,38 @@ class Scheduler:
                  kernel_tune: str | None = None,
                  speculate: str = "off",
                  log_every: int = 0, emit: Callable[[str], None] = print):
+        if mode not in ("continuous", "wave"):
+            raise ValueError(f"unknown scheduling mode {mode!r}")
+        if prefill_chunk is not None and prefill_chunk <= 0:
+            raise ValueError(f"prefill_chunk must be positive: "
+                             f"{prefill_chunk}")
+        if attn_backend not in ATTN_BACKENDS:
+            raise ValueError(f"unknown attention backend {attn_backend!r}; "
+                             f"choose from {ATTN_BACKENDS}")
+        if attn_backend == "cuda_paged" and kv_page_size is None:
+            raise ValueError("attn_backend='cuda_paged' needs paged KV "
+                             "lanes; set kv_page_size")
+        if kv_codec not in KV_CODECS:
+            raise ValueError(f"unknown kv codec {kv_codec!r}; "
+                             f"choose from {KV_CODECS}")
+        if kv_codec == "cluster" and kv_page_size is None:
+            raise ValueError("kv_codec='cluster' compresses the page "
+                             "pools; set kv_page_size")
         refused = [
-            (mode != "continuous", f"mode={mode!r}"),
-            (attn_backend != "cuda_paged",
-             f"attn_backend={attn_backend!r}"),
-            (prefill_chunk is None, "monolithic prefill (prefill_chunk="
-                                    "None)"),
-            (kv_page_size is None, "unpaged KV lanes (kv_page_size=None)"),
             (prefix_share, "prefix_share"),
             ((kernel_tune or "off") != "off", f"kernel_tune={kernel_tune!r}"),
             ((speculate or "off") != "off", f"speculate={speculate!r}"),
             (not engine.supports_paged_attention,
              "archs without paged attention"),
-            (not engine.supports_chunked_prefill,
-             "archs without chunked prefill"),
         ]
         for bad, what in refused:
             if bad:
                 raise NotImplementedError(
-                    f"{what} is not ported to repro_torch yet; it serves "
-                    "attn_backend='cuda_paged' with prefill_chunk and "
-                    "kv_page_size set")
-        if prefill_chunk <= 0:
-            raise ValueError(f"prefill_chunk must be positive: "
-                             f"{prefill_chunk}")
-        if kv_codec not in KV_CODECS:
-            raise ValueError(f"unknown kv codec {kv_codec!r}; "
-                             f"choose from {KV_CODECS}")
+                    f"{what} is not ported to repro_torch yet")
         self.engine = engine
         self.batch_size = batch_size
+        self.buckets = tuple(sorted(buckets))
+        self.mode = mode
         self.slot_len = slot_len
         self.prefill_chunk = prefill_chunk
         self.prefill_budget = prefill_budget or prefill_chunk
@@ -461,15 +844,35 @@ class Scheduler:
     # -- admission ---------------------------------------------------------
     def submit(self, prompt, max_new_tokens: int) -> Request:
         prompt = np.asarray(prompt, np.int32).ravel()
-        if prompt.shape[0] > MAX_PROMPT_LEN:
+        if prompt.shape[0] > self.buckets[-1]:
             raise ValueError(
-                f"prompt length {prompt.shape[0]} exceeds {MAX_PROMPT_LEN} "
-                f"tokens; truncate the prompt")
+                f"prompt length {prompt.shape[0]} exceeds the largest "
+                f"length bucket ({self.buckets[-1]}); truncate the prompt "
+                f"or configure larger buckets")
         req = Request(self._next_rid, prompt, int(max_new_tokens),
                       t_submit=time.monotonic())
         self._next_rid += 1
         self._queue.append(req)
         return req
+
+    def _bucket(self, n: int) -> int:
+        for b in self.buckets:
+            if n <= b:
+                return b
+        return self.buckets[-1]
+
+    def _wave_group(self) -> list[Request]:
+        """Up to batch_size queued requests sharing the head's bucket."""
+        head_bucket = self._bucket(self._queue[0].prompt_len)
+        group, rest = [], []
+        for req in self._queue:
+            if len(group) < self.batch_size and \
+                    self._bucket(req.prompt_len) == head_bucket:
+                group.append(req)
+            else:
+                rest.append(req)
+        self._queue = rest
+        return group
 
     def _ensure_pool(self) -> SlotPool:
         """(Re)build the pool when the queue needs longer slot caches."""
@@ -501,30 +904,58 @@ class Scheduler:
             if self._queue:
                 with tel.timed("admit"):
                     self._admit(pool, completed)
-            with tel.timed("mixed_step"):
-                self._mixed_tick(pool, completed)
+            if self._mixed_path(pool):
+                with tel.timed("mixed_step"):
+                    self._mixed_tick(pool, completed)
+                continue
+            if pool.prefilling():
+                with tel.timed("prefill"):
+                    self._prefill_tick(pool, completed)
+            if pool.active():
+                with tel.timed("decode"):
+                    self._step(pool, completed)
         if pool.codec:
             self.engine.metrics.record_kv_codec_error(
                 pool.codec_error_bound())
         return completed
+
+    def _mixed_path(self, pool: SlotPool) -> bool:
+        """True when prefill chunks and decode tokens ride one ragged
+        ``mixed_step`` an iteration (``cuda_paged`` with chunked
+        prefill); the gathered backend keeps the standalone chunk loop."""
+        return pool.backend == "cuda_paged" and \
+            self.prefill_chunk is not None
 
     def _record_first_token(self, req: Request, tok: int) -> None:
         req.generated.append(tok)
         req.t_first = time.monotonic()
         self.engine.metrics.record_ttft(req.t_first - req.t_submit)
 
-    def _start(self, pool: SlotPool, req: Request) -> None:
-        """Place ``req`` in a free slot in the PREFILLING state: its chunks
-        write straight into the slot's pages."""
+    def _start_or_admit(self, pool: SlotPool, req: Request, params,
+                        completed: list[Request]) -> None:
+        """Place ``req`` in a free slot: chunked -> PREFILLING (its chunks
+        write into the slot's pages on the mixed path, else into a fresh
+        standalone cache), monolithic -> prefilled and installed now."""
         slot = pool.free()[0]
         need = self.engine.cache_len(req.prompt_len, req.max_new_tokens)
         if need > pool.slot_len:
             raise ValueError(f"request {req.rid} needs {need} cache "
                              f"positions > slot_len {pool.slot_len}")
         slot.req = req
-        slot.prefilling = True
-        slot.prefill_cursor = 0
         req.t_admit = time.monotonic()
+        if self.prefill_chunk is not None:
+            slot.prefilling = True
+            slot.prefill_cursor = 0
+            slot.pcache = None if self._mixed_path(pool) else \
+                self.engine.fresh_slot_cache(pool.slot_len)
+            return
+        t0 = time.monotonic()
+        tok, cache1 = self.engine.prefill_request(params, req.prompt,
+                                                  pool.slot_len)
+        pool.install(slot, cache1, tok)
+        self._record_first_token(req, tok)
+        self.engine.metrics.record_admit(1, time.monotonic() - t0, tokens=1)
+        self._maybe_finish(pool, slot, completed)
 
     def _maybe_finish(self, pool: SlotPool, slot: Slot,
                       completed: list[Request]) -> None:
@@ -538,12 +969,25 @@ class Scheduler:
             self.engine.metrics.record_request_done(req)
 
     def _admit(self, pool: SlotPool, completed: list[Request]) -> None:
-        while self._queue:
-            if not pool.free():
-                return
-            req = self._queue[0]
-            if not pool.reserve_for(pool.free()[0], req):
-                if not pool.busy():
+        if self.mode == "wave":
+            if pool.busy() or not self._queue:
+                return                    # wave mode: drain before admitting
+            group = self._wave_group()[:pool.n_slots]
+            self.engine.metrics.record_wave()
+        else:
+            group = None                  # continuous: straight FIFO
+        while self._queue or group:
+            if group is not None:
+                if not group:
+                    return
+                req = group[0]
+            else:
+                if not pool.free():
+                    return
+                req = self._queue[0]
+            slot = pool.free()[0] if pool.free() else None
+            if slot is None or not pool.reserve_for(slot, req):
+                if slot is not None and not pool.busy():
                     # idle pool that still can't reserve: no retire will
                     # ever free pages, so deferring would spin forever
                     need = pool.pages_needed(self.engine.cache_len(
@@ -552,12 +996,88 @@ class Scheduler:
                         f"request {req.rid} needs {need} KV pages but "
                         f"the pool only has {pool.allocator.total}; "
                         f"raise kv_pages")
+                if group is not None:
+                    self._queue = group + self._queue
                 return      # admit when a retire returns pages
-            self._queue.pop(0)
-            # the reference materialises params at every admission; kept
-            # so the decode-cache accounting matches it access for access
-            self.engine.step_params()
-            self._start(pool, req)
+            (group if group is not None else self._queue).pop(0)
+            self._start_or_admit(pool, req, self.engine.step_params(),
+                                 completed)
+
+    def _prefill_tick(self, pool: SlotPool,
+                      completed: list[Request]) -> None:
+        """Advance chunked prefills by up to ``prefill_budget`` prompt
+        tokens (whole chunks; at least one a tick), each prefilling slot on
+        its standalone batch-1 cache — the gathered backend's chunk loop.
+        Chunks round-robin across prefilling slots, so a short prompt
+        admitted beside a long one reaches its first token after its own
+        few chunks."""
+        if self.prefill_chunk is None:
+            return
+        m = self.engine.metrics
+        spent = 0
+        pending = pool.prefilling()
+        while pending and spent < self.prefill_budget:
+            for slot in pending:
+                if spent >= self.prefill_budget:
+                    break
+                req = slot.req
+                c = min(self.prefill_chunk,
+                        req.prompt_len - slot.prefill_cursor)
+                chunk = req.prompt[slot.prefill_cursor:
+                                   slot.prefill_cursor + c]
+                t0 = time.monotonic()
+                params = self.engine.step_params()
+                # under the codec the chunk's K/V is rounded through it, so
+                # install's encode lands on the codec's own fixed point
+                logits, slot.pcache = self.engine.prefill_chunk_step(
+                    params, slot.pcache, chunk, slot.prefill_cursor,
+                    kv_quant=pool.codec)
+                m.record_prefill_chunk(c, time.monotonic() - t0,
+                                       stalled=bool(pool.active()))
+                slot.prefill_cursor += c
+                spent += c
+                if slot.prefill_cursor >= req.prompt_len:
+                    last = logits[0, -1]
+                    if not bool(torch.isfinite(last).all()):
+                        raise RuntimeError(
+                            "non-finite prefill logits (compressed "
+                            "reconstruction or model numerics are broken)")
+                    nxt = int(torch.argmax(last))
+                    pool.install(slot, slot.pcache, nxt)
+                    self._record_first_token(req, nxt)
+                    m.record_admit(1, 0.0, tokens=1)
+                    self._maybe_finish(pool, slot, completed)
+            pending = [s for s in pending if s.prefilling]
+
+    def _record_step(self, pool: SlotPool) -> None:
+        """Pool gauges and copy counters after a decode step."""
+        m = self.engine.metrics
+        m.record_pages(pool.pages_in_use(),
+                       pool.allocator.total if pool.paged else 0)
+        m.record_kv_gather(pool.gather_bytes_per_step,
+                           pool.gather_bytes_avoided_per_step)
+        if pool.codec:
+            m.record_kv_codec(pool.pages_in_use() * pool.page_bytes_fp,
+                              pool.pages_in_use() *
+                              pool.page_bytes_resident)
+        if self.log_every and m.decode_steps % self.log_every == 0:
+            self.emit(self.engine.stats_line())
+
+    def _step(self, pool: SlotPool, completed: list[Request]) -> None:
+        """One decode step for every slot (``SlotPool.decode``)."""
+        t0 = time.monotonic()
+        results = pool.decode(self.engine.step_params())
+        for slot, tok, finite in results:
+            if not finite:
+                raise RuntimeError(
+                    f"non-finite logits in decode step for request "
+                    f"{slot.req.rid} (compressed reconstruction or model "
+                    f"numerics are broken)")
+            slot.req.generated.append(tok)
+            self._maybe_finish(pool, slot, completed)
+        self.engine.metrics.record_decode_step(
+            len(results), time.monotonic() - t0, n_slots=pool.n_slots)
+        self._record_step(pool)
 
     def _mixed_tick(self, pool: SlotPool,
                     completed: list[Request]) -> None:
@@ -634,18 +1154,11 @@ class Scheduler:
                 slot.pos = self.engine.pos_offset(req.prompt_len)
                 self._record_first_token(req, slot.tok)
                 m.record_admit(1, 0.0, tokens=1)
-                # the install copy the gathered oracle performs at the
-                # end of every prefill never happens here
+                # the install copy a standalone-cache prefill makes at its
+                # end never happens here
                 m.record_prefill_gather(0, pool.install_bytes)
                 self._maybe_finish(pool, slot, completed)
         if active:
             m.record_decode_step(len(active), dt_decode,
                                  n_slots=pool.n_slots)
-            m.record_pages(pool.pages_in_use(), pool.allocator.total)
-            m.record_kv_gather(0, pool.gather_bytes_avoided_per_step)
-            if pool.codec:
-                m.record_kv_codec(pool.pages_in_use() * pool.page_bytes_fp,
-                                  pool.pages_in_use() *
-                                  pool.page_bytes_resident)
-            if self.log_every and m.decode_steps % self.log_every == 0:
-                self.emit(self.engine.stats_line())
+            self._record_step(pool)

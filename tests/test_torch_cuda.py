@@ -24,6 +24,7 @@ from repro_torch.kernels.huffman_decode import flat_table, huffman_decode
 from repro_torch.kernels.paged_attention import (decode_pool,
                                                  gqa_kernel_info,
                                                  mla_kernel_info,
+                                                 paged_decode_attention,
                                                  paged_mixed_attention,
                                                  paged_mixed_attention_plain,
                                                  sm_count)
@@ -159,6 +160,77 @@ def test_paged_attention_kernel_never_reads_sink_or_padding(dev):
     torch.cuda.synchronize()
     assert torch.isfinite(poisoned).all()
     assert torch.equal(clean, poisoned)
+
+
+@pytest.mark.parametrize("mla", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_decode_attention_is_the_kernel_at_q1(dev, dtype, mla):
+    """The Q=1 wrapper launches the GQA (or, with ``q2``, the MLA) kernel
+    once, gives the mixed kernel's bits at q_lens = 1, and stays within
+    the plain version's tolerance with the sink and padding poisoned."""
+    q, k, v, table, lengths, _, logical = _paged(dev, dtype, seed=11,
+                                                 h=8 if not mla else 16)
+    live = torch.tensor([0, 1, 3], device=dev)   # slot 2 owns no page
+    q, table, lengths = q[live, 0], table[live], lengths[live]
+    kw = dict(page_size=logical)
+    if mla:
+        k = v = k[:, :, :1].contiguous()
+        gen = torch.Generator(device=dev).manual_seed(2)
+        kw.update(q2=torch.randn((*q.shape[:2], 32), generator=gen,
+                                 device=dev),
+                  k2_pages=torch.randn((*k.shape[:3], 32), generator=gen,
+                                       device=dev).to(dtype), scale=0.1)
+    k[0], k[:, logical:] = 3e4, 3e4
+    if not mla:
+        v[0], v[:, logical:] = -3e4, -3e4
+    ones = torch.ones_like(lengths)
+    q2 = kw.pop("q2", None)
+    before = paged_mixed_attention.launches
+    got = paged_decode_attention(q, k, v, table, lengths, q2, **kw)
+    assert paged_mixed_attention.launches == before + 1
+    mixed = paged_mixed_attention(q[:, None], k, v, table, lengths, ones,
+                                  None if q2 is None else q2[:, None], **kw)
+    want = paged_mixed_attention_plain(
+        q[:, None], k, v, table, lengths, ones,
+        q2=None if q2 is None else q2[:, None], **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, mixed[:, 0])
+    torch.testing.assert_close(got, want[:, 0], atol=2e-5, rtol=1e-4)
+
+
+def test_lane_paths_serve_the_cpu_tokens(dev):
+    """A small f32 model with +-1 MLP weights served on the gathered
+    backend (paged and monolithic lanes, codec), with monolithic prefill
+    on cuda_paged, and in wave mode: the card's tokens are the CPU's."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.transformer import init_params
+    from repro_torch.runtime import Scheduler, ServeEngine
+    from repro_torch.tree import tree_map_with_path
+    cfg = get_config("minitron-8b").scaled(
+        num_layers=2, scan_repeats=2, d_model=64, num_heads=4,
+        num_kv_heads=2, head_dim=16, d_ff=128, vocab_size=128,
+        dtype="float32")
+    params = tree_map_with_path(
+        lambda path, w: torch.where(w >= 0, 1.0, -1.0)
+        if "mlp" in path.split("/") else w,
+        init_params(cfg, torch.Generator().manual_seed(1), "cpu"))
+    rng = np.random.default_rng(1)
+    reqs = [(rng.integers(0, 128, n), g)
+            for n, g in ((5, 7), (12, 2), (20, 5), (6, 9), (3, 1))]
+    engines = {d: ServeEngine(cfg, params, device=d) for d in ("cpu", dev)}
+    for kw in (dict(attn_backend="gathered"),
+               dict(attn_backend="gathered", kv_page_size=4,
+                    prefill_chunk=3, kv_codec="cluster"),
+               dict(attn_backend="cuda_paged", kv_page_size=4),
+               dict(attn_backend="cuda_paged", kv_page_size=4,
+                    prefill_chunk=3, mode="wave")):
+        out = []
+        for engine in engines.values():
+            sched = Scheduler(engine, batch_size=2, **kw)
+            for r in reqs:
+                sched.submit(*r)
+            out.append({r.rid: r.generated for r in sched.run()})
+        assert out[0] == out[1], kw
 
 
 def _codec_pools(dev, seed, d=128):

@@ -88,7 +88,9 @@ _PORT_MODULES = {
     "repro_torch.kernels.fused_decode_contraction", "repro_torch.kernels.ops",
     "repro_torch.models.reactnet", "repro_torch.configs.reactnet",
     "repro_torch.kernels.kv_codec", "repro_torch.models.moe",
-    "repro_torch.configs.deepseek_v2_236b",
+    "repro_torch.configs.deepseek_v2_236b", "repro_torch.models.attention",
+    "repro_torch.models.api", "repro_torch.runtime.scheduler",
+    "repro_torch.runtime.metrics", "repro_torch.launch.serve",
 }
 
 

@@ -27,7 +27,7 @@ from repro_torch.launch import serve as serve_launch
 from repro_torch.models import transformer
 from repro_torch.models.api import cache_layout, get_model
 from repro_torch.models.layers import gelu_tanh
-from repro_torch.runtime import Scheduler, ServeEngine
+from repro_torch.runtime import Scheduler, ServeEngine, SlotPool
 from repro_torch.runtime.decode_cache import DecodeTileCache
 from repro_torch.runtime.weight_store import WeightStore
 from tests.harness import MIXED, assert_tokens_identical, mixed_requests
@@ -219,8 +219,6 @@ def test_mixed_path_copies_no_kv_and_leaks_no_pages(engines):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(attn_backend="gathered"), dict(mode="wave"),
-    dict(prefill_chunk=None), dict(kv_page_size=None),
     dict(prefix_share=True),
     dict(speculate="ngram"), dict(kernel_tune="auto")])
 def test_unported_flags_are_refused(engines, kw):
@@ -228,6 +226,30 @@ def test_unported_flags_are_refused(engines, kw):
     args.update(kw)
     with pytest.raises(NotImplementedError):
         Scheduler(engines[0], **args)
+
+
+@pytest.fixture(scope="module")
+def swa_engine():
+    """A reduced minitron whose blocks are ``swa`` with a window of 8: at
+    any slot length past 8 its K/V leaves are rolling lanes, not pages."""
+    cfg = reduced_torch("minitron-8b").scaled(scan_pattern=("swa",),
+                                              window=8)
+    tree = jax_params(reduced_jax("minitron-8b"), seed=0)
+    return ServeEngine(cfg, torch_params(tree), device="cpu")
+
+
+@pytest.mark.parametrize("chunk", [3, None])
+def test_lane_leaves_beside_pools_are_refused(swa_engine, chunk):
+    """Under cuda_paged, rolling-window lanes beside the page pools are
+    not ported: the pool refuses them when it probes the layout, on the
+    mixed path and on the monolithic install path alike."""
+    sched = Scheduler(swa_engine, kv_page_size=4, prefill_chunk=chunk,
+                      attn_backend="cuda_paged")
+    sched.submit(np.arange(12) % 128, 3)
+    with pytest.raises(NotImplementedError, match="rolling-window"):
+        sched.run()
+    with pytest.raises(NotImplementedError, match="rolling-window"):
+        SlotPool(swa_engine, 2, 32, page_size=4, backend="cuda_paged")
 
 
 def test_cuda_device_without_a_card_raises():
