@@ -40,6 +40,19 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` with nvcc
   ``paged_decode_attention`` (Q=1) is held against its plain version at
   both models' widths; the small models give the CPU's tokens on every
   one of these paths;
+* phi3-medium-14b, h2o-danube-1.8b, gemma2-2b and mixtral-8x22b: holds
+  the GQA kernel against its plain version at each arch's heads and
+  head_dim (bf16 and codec pools, Q=64 and Q=1; registers, spills and
+  shared memory, bounds, event and device times beside SDPA's), serves
+  each at its published widths (depth cut: ``ARCH_LAYERS``) on the main
+  path with the attention launches counted against the kernel backend's
+  steps, serves gemma2 and danube again with the window cut to
+  ``WINDOW_CUT`` (gemma2's local blocks and every danube block then keep
+  rolling lanes: the kernel runs for gemma2's global block alone, and
+  never for danube), compares one decode step's logits of the kernel
+  path with the gathered one for each (and gemma2 at the cut window), and
+  serves each tiny config (gemma2 also at window 16) on card and CPU to
+  the same tokens;
 * the paper's BNN: times the int8 and binary mma.sync probe, prints the
   fused and contraction kernels' registers, spills, shared memory and
   launch plans, holds the binarize-pack ((M, K) rows and 3x3 patches
@@ -55,8 +68,10 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` with nvcc
   packed and compressed forwards, and checks a small ReActNet's logits on
   card and CPU.
 
-The last two lines of standard output are one JSON object per kernel
-(``{"kernels": [...]}``) and ``{"ok": true, "device": {...}}``.  Any
+Each phase prints its seconds.  The last two lines of standard output
+are one JSON object per kernel (``{"kernels": [...]}``; the GQA kernel at
+each new arch's shapes is an entry of its own) and ``{"ok": true,
+"device": {...}}``.  Any
 failure exits non-zero before them, as does a machine without a GPU.
 Peak rates for the roofline bounds are the H100 SXM data-sheet numbers,
 and for binary MMAs 8x the int8 one (``B1_TC_OPS_PER_S``).
@@ -64,6 +79,8 @@ and for binary MMAs 8x the int8 one (``B1_TC_OPS_PER_S``).
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import dataclasses
 import json
 import os
@@ -149,6 +166,24 @@ SMALL_MLA = dict(   # the reduced deepseek of the JAX package's tests
     num_experts=4, num_shared_experts=1, top_k=2, kv_lora_rank=16,
     q_lora_rank=24, rope_head_dim=8, nope_head_dim=16, v_head_dim=16,
     capacity_factor=8.0)
+
+# the archs served on both backends beside minitron and deepseek: depth cut
+# to these many layers (published widths), and why
+ARCH_LAYERS = {
+    "phi3-medium-14b": (1, "registration binarises and Huffman-compresses "
+                           "each 5120x17920 MLP matrix on the host, 120 at "
+                           "full depth; one block runs every module"),
+    "h2o-danube-1.8b": (2, "registration compresses each 2560x6912 MLP "
+                           "matrix on the host, 72 at full depth"),
+    "gemma2-2b": (2, "one repeat of its local + global pattern runs every "
+                     "module; registration compresses each 2304x9216 MLP "
+                     "matrix on the host, 78 at full depth"),
+    "mixtral-8x22b": (2, "does not fit one card: "
+                         + TOO_DEEP_FOR_ONE_CARD["mixtral-8x22b"]),
+}
+# the window the lane checks cut to: shorter than the serve phases' slots
+# (up to 272 positions), so a windowed block's K/V are rolling lanes
+WINDOW_CUT = 64
 
 # ReActNet-A phase: the full model at its published shapes
 RN_BATCH = 32
@@ -725,7 +760,7 @@ def profile_serve(engine, prompts, **kw) -> dict:
         _serve(engine, prompts, **kw)
         wall_ms = (time.monotonic() - t0) * 1e3
     calls = (engine.cache.hits - hits0) // engine.store.n_tiles(
-        engine.model_id)
+        engine.model_id) if engine.compressed else 0
     # kernel rows only: an aten op's row repeats its kernels' device time
     rows = [(e.key, e.self_device_time_total / 1e3, e.count)
             for e in prof.key_averages()
@@ -845,16 +880,19 @@ def _installed_pool(engine, params, firsts, slot_len, **kw):
 
 
 def _shift_first_page(pool) -> None:
-    """The planted fault: slot 0's first page in every kernel-layout pool
-    shifted down by one row (row 0 repeated, the page's last key lost), as
-    an install that is one token off would leave it."""
+    """The planted fault: slot 0's first page in every kernel-layout pool,
+    and slot 0's rolling lane beside them, shifted down by one row (row 0
+    repeated, the last key lost), as an install that is one token off
+    would leave them."""
     page = int(pool.table[0, 0])
-    for leaf, ax in zip(tree_leaves(pool.kcache), pool._paged_axis):
-        rows = leaf.select(ax - 1, page).movedim(ax - 1, 0)
+    for leaf, ax, bax in zip(tree_leaves(pool.kcache), pool._paged_axis,
+                             pool._batch_axis):
+        rows = leaf.select(bax, 0).movedim(bax, 0) if ax is None else \
+            leaf.select(ax - 1, page).movedim(ax - 1, 0)
         rows[1:] = rows[:-1].clone()
 
 
-def phase_decode_logits(cfg, dev, prompts, mla=False) -> None:
+def phase_decode_logits(cfg, dev, prompts, mla=False, label=None) -> None:
     """The first SERVE_BATCH requests prefilled monolithically at full
     width, installed into a fresh pool of each layout, and one decode
     step's logits compared: gathered pages (page 16) and monolithic lanes
@@ -867,8 +905,10 @@ def phase_decode_logits(cfg, dev, prompts, mla=False) -> None:
     seed 0): a binarised MLP takes the sign of its input, so a rounding
     difference there can flip a bit and move the logits by a whole
     weight, and no tolerance would then tell rounding from a fault.  The
-    install, the gather and the kernel are the same code either way."""
-    name = "serve mla" if mla else "serve"
+    install, the gather and the kernel are the same code either way.
+    Rolling-window lanes (a window shorter than the slot) sit beside the
+    pages in every layout and take the ulp flip too."""
+    name = label or ("serve mla" if mla else "serve")
     engine = ServeEngine(cfg, init_params(
         cfg, torch.Generator(device=dev).manual_seed(0), dev), device=dev,
         compress=False)
@@ -888,7 +928,7 @@ def phase_decode_logits(cfg, dev, prompts, mla=False) -> None:
              for k, kw in layouts.items()}
     pool = _installed_pool(engine, params, firsts, slot_len,
                            **layouts["gathered"])
-    for pg in pool.pages:
+    for pg in pool.pages + pool.unpaged:
         if pg.dtype != torch.bfloat16:
             fail(f"{name}: the logits check expects bf16 pages, not "
                  f"{pg.dtype}")
@@ -919,7 +959,8 @@ def phase_decode_logits(cfg, dev, prompts, mla=False) -> None:
           f"gathered page {SERVE_PAGE} {'bit for bit' if exact else 'DIFFER'};"
           f" max abs diff vs gathered: cuda_paged kernel {err:.4e}, one bf16 "
           f"ulp on every cached K/V {floor:.4e} (tolerance {LOGIT_ULP_FACTOR}"
-          f"x = {tol:.4e}), planted one-row shift of a kernel page "
+          f"x = {tol:.4e}), planted one-row shift of slot 0's first "
+          f"kernel page (and lanes) "
           f"{fault:.4e}")
     if not exact:
         fail(f"{name}: monolithic lanes' logits differ from gathered "
@@ -1909,6 +1950,298 @@ def phase_small_reactnet(dev) -> None:
 
 
 
+# ---------------------------------------------------------------------------
+# phi3-medium-14b, h2o-danube-1.8b, gemma2-2b, mixtral-8x22b
+# ---------------------------------------------------------------------------
+
+def _arch_attention_case(dev, cfg, qn, q_lens, lengths, pps, gen) -> dict:
+    """The GQA kernel at ``cfg``'s query heads, KV heads and head_dim on
+    bf16 pools and on int8 codec pools: against its plain version over
+    window {0, 100} x softcap {0, the arch's cap or ATTN_SOFTCAP}
+    (ATTN_TOL), page 0 poisoned (inert), the codec kernel with the fp
+    kernel's bits on the pools decoded up front into f32; then timed at
+    window 0 with the arch's softcap (its published window, 4096, is past
+    every slot of the serve phases) -> worst errors and timings."""
+    h, kh, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q, k, v, table, ln, ql = _attn_inputs(dev, qn, q_lens, lengths, pps,
+                                          gen, h=h, kh=kh, d=d)
+    (kc, ks), (vc, vs) = (kv_codec.encode(x, (-2, -1)) for x in (k, v))
+    cb = kv_codec.codebook(dev)
+    kd, vd = decode_pool(kc, ks, cb), decode_pool(vc, vs, cb)
+    ckw = dict(k_scales=ks, v_scales=vs, codebook=cb)
+    pools = {"bf16": (k, v, {}), "codec": (kc, vc, ckw)}
+    poison = {"bf16": (3e4, -3e4), "codec": (127, -127)}
+    rows = torch.arange(qn, device=dev)[None] < ql[:, None]
+    worst = {name: 0.0 for name in pools}
+    for window in (0, 100):
+        for cap in (0.0, cfg.attn_logit_softcap or ATTN_SOFTCAP):
+            kw = dict(window=window, softcap_val=cap, page_size=SERVE_PAGE)
+            fp_decoded = paged_mixed_attention(q, kd, vd, table, ln, ql,
+                                               **kw)
+            for name, (kk, vv, extra) in pools.items():
+                got = paged_mixed_attention(q, kk, vv, table, ln, ql,
+                                            **extra, **kw)
+                want = paged_mixed_attention_plain(q, kk, vv, table, ln, ql,
+                                                   **extra, **kw)
+                kp, vp = kk.clone(), vv.clone()
+                kp[0], vp[0] = poison[name]
+                poisoned = paged_mixed_attention(q, kp, vp, table, ln, ql,
+                                                 **extra, **kw)
+                torch.cuda.synchronize()
+                err = float((got - want).abs()[rows].max())
+                worst[name] = max(worst[name], err)
+                label = (f"{cfg.name} {name} paged attention Q={qn} "
+                         f"window={window} softcap={cap}")
+                if not torch.isfinite(got).all() or not err <= ATTN_TOL:
+                    fail(f"{label}: max err {err} > {ATTN_TOL}")
+                if not torch.equal(got, poisoned):
+                    fail(f"{label}: poisoned page 0 changed the output")
+                if name == "codec" and not torch.equal(got, fp_decoded):
+                    fail(f"{label}: the codec kernel differs from the fp "
+                         f"kernel on the decoded f32 pools at "
+                         f"{int((got != fp_decoded).sum())} outputs")
+    timing = {}
+    kw = dict(softcap_val=cfg.attn_logit_softcap, page_size=SERVE_PAGE)
+    for name, (kk, vv, extra) in pools.items():
+        run = (lambda kk=kk, vv=vv, extra=extra: paged_mixed_attention(
+            q, kk, vv, table, ln, ql, **extra, **kw))
+        lib = _sdpa(q, kd, vd, table, ln, ql) if name == "codec" else \
+            _sdpa(q, k, v, table, ln, ql)
+        nbytes, ops = _attn_bytes_ops(q, kk, table, ln, ql, 0,
+                                      codec=name == "codec")
+        bms, by, fbms = _attn_bounds(f"{cfg.name} {name}", qn, nbytes, ops)
+        timing[name] = {
+            "ms": time_ms(run, iters=50), "graph_ms": graph_ms(run),
+            "device_ms": device_ms(run),
+            "plain_ms": time_ms(lambda: paged_mixed_attention_plain(
+                q, kk, vv, table, ln, ql, **extra, **kw), iters=10),
+            "library_ms": time_ms(lib, iters=50),
+            "library_graph_ms": graph_ms(lib),
+            "library_device_ms": device_ms(lib),
+            "bound_ms": bms, "bound_by": by, "bound_f32_ms": fbms}
+    return worst, timing
+
+
+def phase_attention_archs(dev) -> dict:
+    """The GQA kernel at each arch's decode (Q=1) and chunk (Q=64) shapes
+    of the serve phases: registers, spills and shared memory, errors
+    against the plain version, event and device ms beside SDPA's, TF32
+    and f32 bounds -> one ``kernels`` entry an arch (launches are filled
+    in from its serve)."""
+    gen = torch.Generator(device=dev).manual_seed(6)
+    pps = -(-(int(SERVE_PROMPTS.max()) + SERVE_GEN) // SERVE_PAGE)
+    span = pps * SERVE_PAGE
+    cases = {64: ([64, 37, 0, 1], [span, 130, 0, 200]),
+             1: ([1, 1, 0, 1], [span, 17, 5, 100])}
+    out = {}
+    for arch in ARCH_LAYERS:
+        cfg = get_config(arch)
+        h, kh, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        for qn in cases:
+            for pools in ("bfloat16", "gather"):
+                info = gqa_kernel_info(pools, SERVE_BATCH, qn, h, kh, d, d)
+                print(f"paged_attention (GQA) kernel at {arch} Q={qn} "
+                      f"({pools} pools, H={h}, KH={kh}, G={h // kh}, "
+                      f"D=Dv={d}): {info['rows']} query rows a block, "
+                      f"{info['registers']} registers a thread, "
+                      f"{info['local_bytes']} local (spill) bytes, "
+                      f"{info['smem_bytes']} B of dynamic shared memory")
+                if info["local_bytes"]:
+                    fail(f"the GQA kernel ({pools}) spills at {arch}")
+        worst, timing = {}, {}
+        for qn, (q_lens, lengths) in cases.items():
+            worst[qn], timing[qn] = _arch_attention_case(
+                dev, cfg, qn, q_lens, lengths, pps, gen)
+            for name, t in timing[qn].items():
+                print(f"paged_mixed_attention at {arch} Q={qn} {name} pools "
+                      f"(S={SERVE_BATCH}, H={h}, KH={kh}, D={d}, softcap "
+                      f"{cfg.attn_logit_softcap}, q_lens {q_lens}): kernel "
+                      f"{t['ms']:.4f} ms (graph {t['graph_ms']:.4f}, device "
+                      f"{t['device_ms']:.4f}), plain {t['plain_ms']:.4f} ms,"
+                      f" sdpa {t['library_ms']:.4f} ms (graph "
+                      f"{t['library_graph_ms']:.4f}, device "
+                      f"{t['library_device_ms']:.4f}; "
+                      f"{t['graph_ms'] / t['library_graph_ms']:.2f}x "
+                      f"kernel/sdpa graph); bound {t['bound_ms']:.4f} ms "
+                      f"({t['bound_by']}, TF32), f32 bound "
+                      f"{t['bound_f32_ms']:.4f} ms; max abs err "
+                      f"{worst[qn][name]:.3e} <= {ATTN_TOL}")
+        out[arch] = {
+            "name": f"paged_mixed_attention[{arch}]", "route": "cuda",
+            "variant_of": "paged_mixed_attention",
+            "source": "src/repro_torch/csrc/paged_attention.cu",
+            "replaces": "src/repro/kernels/paged_attention.py:239",
+            "max_abs_err": max(max(w.values()) for w in worst.values()),
+            **timing[64]["bf16"],
+            "shape": f"S=4 Q=64 H={h} KH={kh} D={d} page=16 bf16, softcap "
+                     f"{cfg.attn_logit_softcap} (bound_ms at the TF32 "
+                     f"tensor-core rate; graph_ms: CUDA-graph replay; "
+                     f"device_ms: profiler kernel time)",
+            "decode_q1": timing[1]["bf16"], "codec": timing[64]["codec"],
+            "codec_q1": timing[1]["codec"]}
+    return out
+
+
+@contextlib.contextmanager
+def _steps_counted():
+    """Count ``SlotPool.mixed_step`` calls while the block runs: every
+    step of the kernel backend (a mixed tick, or a Q=1 decode step after
+    a monolithic prefill)."""
+    n = [0]
+    inner = SlotPool.mixed_step
+
+    def counted(self, *args, **kw):
+        n[0] += 1
+        return inner(self, *args, **kw)
+
+    SlotPool.mixed_step = counted
+    try:
+        yield n
+    finally:
+        SlotPool.mixed_step = inner
+
+
+def _kernel_blocks(pool) -> int:
+    """GQA blocks whose K/V are page pools in ``pool`` (the attention
+    kernel runs once each a step; the others are rolling lanes)."""
+    flags, n = iter(pool.paged_flags), []
+    tree_map_with_path(lambda path, leaf: n.append(
+        next(flags) * (leaf.shape[0] if path.startswith("scan") else 1)),
+        pool.kcache)
+    return sum(n) // 2          # a GQA block's two leaves, k and v
+
+
+def _arch_engine(arch, dev):
+    """``arch`` at its published widths, depth cut to ``ARCH_LAYERS``,
+    random weights from seed 0, registered in a ServeEngine (compressed
+    when it has dense MLPs)."""
+    layers, why = ARCH_LAYERS[arch]
+    full = get_config(arch)
+    cfg = cut_depth(full, layers)
+    kinds = list(cfg.scan_pattern) * cfg.scan_repeats
+    mlp = (f"{cfg.num_experts} experts top-{cfg.top_k}, moe_d_ff "
+           f"{cfg.moe_d_ff}" if cfg.num_experts else f"d_ff {cfg.d_ff} "
+           f"({cfg.mlp_act})")
+    print(f"reduced: {arch} depth {full.num_layers} -> {cfg.num_layers} "
+          f"layers ({' + '.join(kinds)}; widths as published: d_model "
+          f"{cfg.d_model}, heads {cfg.num_heads}/{cfg.num_kv_heads}, "
+          f"head_dim {cfg.head_dim}, {mlp}, vocab {cfg.vocab_size}, window "
+          f"{cfg.window}, softcaps {cfg.attn_logit_softcap}/"
+          f"{cfg.final_logit_softcap}, {cfg.dtype}); reason: {why}")
+    t0 = time.monotonic()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dev)
+    torch.cuda.synchronize()
+    nbytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    print(f"{arch} params: {nbytes / 1e9:.2f} GB on the card, random from "
+          f"seed 0 in {time.monotonic() - t0:.2f}s")
+    t0 = time.monotonic()
+    engine = ServeEngine(cfg, params, device=dev)
+    del params
+    if engine.compressed:
+        rep = engine.report
+        print(f"registration: {rep['layers']} MLP matrices in "
+              f"{time.monotonic() - t0:.1f}s, {rep['packed_bytes']} packed "
+              f"-> {rep['stream_bytes']} stream bytes "
+              f"({rep['ratio_stream']:.3f}x)")
+    else:
+        print(f"registration: {arch} has no dense MLP; served uncompressed")
+    return engine
+
+
+def _serve_counted(engine, prompts, label, **kw):
+    """``_serve`` from a cold tile cache (so a compressed engine's decode
+    kernel runs) with the launch counts set to 0 just before it and read
+    just after, and the kernel backend's steps counted: the attention
+    kernel must run once a pooled block a step and never for a lane
+    block; two runs give the same tokens."""
+    engine.cache.clear()
+    engine.metrics = ServeMetrics()
+    with _steps_counted() as steps:
+        _reset_counts()
+        toks, wall, sched = _serve(engine, prompts, **kw)
+        n_attn = _attn_launches(False)
+        n_dec = huffman_decode.launches
+    pool, m = sched._pool, engine.metrics
+    blocks = _kernel_blocks(pool)
+    if n_attn != steps[0] * blocks:
+        fail(f"{label}: {n_attn} attention launches for {steps[0]} steps "
+             f"of {blocks} pooled blocks")
+    if bool(n_dec) != engine.compressed:
+        fail(f"{label}: {n_dec} decode launches, compressed="
+             f"{engine.compressed}")
+    engine.metrics = ServeMetrics()
+    again, wall2, _ = _serve(engine, prompts, **kw)
+    if again != toks:
+        fail(f"{label}: a second run of the same requests gave other tokens")
+    lanes = pool.paged_flags.count(False)
+    print(f"{label}: {len(prompts)} requests, launches: attention {n_attn} "
+          f"({steps[0]} kernel-backend steps x {blocks} pooled blocks), "
+          f"decode {n_dec}; {lanes} of {len(pool.paged_flags)} cache leaves "
+          f"rolling lanes; run 1 {wall:.2f}s, {m.ms_per_token():.2f} ms/step"
+          f", {m.tokens_per_s():.1f} tok/s; run 2 (warm) {wall2:.2f}s, "
+          f"{engine.metrics.ms_per_token():.2f} ms/step, "
+          f"{engine.metrics.tokens_per_s():.1f} tok/s; tokens identical; "
+          f"sample {toks[0][:8]}")
+    return n_attn, blocks, toks
+
+
+def phase_serve_arch(arch, dev):
+    """``arch`` at its published widths (depth cut) served on the main
+    path (cuda_paged, chunk 64, page 16): every pooled block launches the
+    attention kernel each step, two runs agree, a warm run profiled;
+    gemma2 and danube again with the window cut to WINDOW_CUT, where
+    gemma2's local blocks and every danube block are rolling lanes beside
+    (or instead of) the pools: the kernel then runs for gemma2's global
+    block only, and never for danube."""
+    engine = _arch_engine(arch, dev)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, engine.cfg.vocab_size, n)
+               for n in SERVE_PROMPTS]
+    n_attn, blocks, _ = _serve_counted(engine, prompts, f"serve {arch}")
+    if blocks != engine.cfg.num_layers:
+        fail(f"serve {arch}: {blocks} of {engine.cfg.num_layers} blocks "
+             f"paged at the published window {engine.cfg.window}")
+    prof = profile_serve(engine, prompts)
+    print(f"serve {arch} warm: {prof['ms_step']:.2f} ms/step, device busy "
+          f"{prof['busy_ms']:.1f} ms, attention kernel "
+          f"{prof['attn_ms']:.3f} ms x{prof['attn_launches']}, one warm "
+          f"materialize {prof['mat_ms']:.1f} ms")
+    if arch in ("gemma2-2b", "h2o-danube-1.8b"):
+        print(f"window cut: {arch} {engine.cfg.window} -> {WINDOW_CUT} "
+              f"(reason: shorter than the slots, so windowed blocks keep "
+              f"rolling lanes beside the page pools)")
+        lane = copy.copy(engine)
+        lane.cfg = engine.cfg.scaled(window=WINDOW_CUT)
+        _, lane_blocks, _ = _serve_counted(
+            lane, prompts, f"serve {arch} window {WINDOW_CUT}")
+        want = sum(k == "global" for k in lane.cfg.scan_pattern) \
+            * lane.cfg.scan_repeats
+        if lane_blocks != want or (arch == "gemma2-2b") != bool(want):
+            fail(f"serve {arch} window {WINDOW_CUT}: {lane_blocks} pooled "
+                 f"blocks, expected {want}")
+    return engine, prompts, n_attn
+
+
+def phase_archs(dev, kernels: dict, launches: dict) -> None:
+    """Each arch served (``phase_serve_arch``), then one decode step's
+    logits at its widths (``phase_decode_logits``; gemma2 again at
+    WINDOW_CUT, lanes beside the pools)."""
+    for arch in ARCH_LAYERS:
+        t0 = time.monotonic()
+        engine, prompts, n_attn = phase_serve_arch(arch, dev)
+        launches[kernels[arch]["name"]] = n_attn
+        cfg = engine.cfg.scaled(binarize_mlp=False)
+        del engine
+        torch.cuda.empty_cache()
+        phase_decode_logits(cfg, dev, prompts, label=f"serve {arch}")
+        if arch == "gemma2-2b":
+            phase_decode_logits(cfg.scaled(window=WINDOW_CUT), dev, prompts,
+                                label=f"serve {arch} window {WINDOW_CUT}")
+        torch.cuda.empty_cache()
+        print(f"phase {arch}: {time.monotonic() - t0:.1f}s")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this check needs a GPU")
@@ -1923,29 +2256,54 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     t_start = time.monotonic()
-    phase_build()
-    engine, expect = phase_register(dev)
-    kernels = [phase_huffman(engine, expect), *phase_attention(dev)]
-    launches, prompts, fp_warm, toks = phase_serve(engine)
-    codec_launches = phase_serve_codec(engine, prompts, launches, fp_warm)
+
+    def timed(label, fn, *args):
+        t0 = time.monotonic()
+        out = fn(*args)
+        print(f"phase {label}: {time.monotonic() - t0:.1f}s", flush=True)
+        return out
+
+    timed("build", phase_build)
+    engine, expect = timed("register minitron", phase_register, dev)
+    kernels = [timed("huffman", phase_huffman, engine, expect),
+               *timed("attention", phase_attention, dev)]
+    # before the serve phases: late in a run the profiler has been seen to
+    # drop part of this kernel's time (graph ms unchanged)
+    arch_kernels = timed("attention archs", phase_attention_archs, dev)
+    launches, prompts, fp_warm, toks = timed("serve minitron", phase_serve,
+                                             engine)
+    codec_launches = timed("serve minitron codec", phase_serve_codec,
+                           engine, prompts, launches, fp_warm)
     launches["paged_mixed_attention_codec"] = \
         codec_launches["paged_mixed_attention_codec"]
-    phase_fused_operands(engine, dev)
-    phase_serve_paths(engine, prompts, toks, BACKEND_PATHS)
+    timed("fused operands", phase_fused_operands, engine, dev)
+    timed("serve paths", phase_serve_paths, engine, prompts, toks,
+          BACKEND_PATHS)
     cfg = engine.cfg.scaled(binarize_mlp=False)
     del engine
     torch.cuda.empty_cache()
-    phase_decode_logits(cfg, dev, prompts)
+    timed("decode logits", phase_decode_logits, cfg, dev, prompts)
     torch.cuda.empty_cache()
-    kernels += phase_attention_mla(dev)
-    phase_decode_wrapper(dev)
-    launches.update(phase_serve_mla(dev))
-    phase_small_mla_reference(dev)
-    phase_small_reference(dev, tiny_config("minitron-8b"), "tiny minitron")
-    params, images, comp = setup_reactnet(dev)
-    kernels += phase_binary_kernels(dev, comp)
-    launches.update(phase_reactnet(dev, params, images, comp))
-    phase_small_reactnet(dev)
+    kernels += timed("attention mla", phase_attention_mla, dev)
+    timed("decode wrapper", phase_decode_wrapper, dev)
+    launches.update(timed("serve mla", phase_serve_mla, dev))
+    timed("small mla", phase_small_mla_reference, dev)
+    timed("small minitron", phase_small_reference, dev,
+          tiny_config("minitron-8b"), "tiny minitron")
+    timed("archs", phase_archs, dev, arch_kernels, launches)
+    kernels += list(arch_kernels.values())
+    for arch in ARCH_LAYERS:
+        timed(f"small {arch}", phase_small_reference, dev,
+              tiny_config(arch), f"tiny {arch}")
+    timed("small gemma2 lanes", phase_small_reference, dev,
+          tiny_config("gemma2-2b").scaled(window=16),
+          "tiny gemma2-2b at window 16 (local blocks rolling lanes beside "
+          "the pools)")
+    params, images, comp = timed("setup reactnet", setup_reactnet, dev)
+    kernels += timed("binary kernels", phase_binary_kernels, dev, comp)
+    launches.update(timed("reactnet", phase_reactnet, dev, params, images,
+                          comp))
+    timed("small reactnet", phase_small_reactnet, dev)
     for k in kernels:
         k["launches"] = launches[k["name"]]
     print(f"total {time.monotonic() - t_start:.1f}s; gpu: {smi}")

@@ -93,7 +93,8 @@ class ModelConfig:
 
 
 # the archs this port runs so far; the rest wait for later slices
-PORTED = ("minitron-8b", "deepseek-v2-236b", "reactnet")
+PORTED = ("minitron-8b", "deepseek-v2-236b", "phi3-medium-14b",
+          "h2o-danube-1.8b", "gemma2-2b", "mixtral-8x22b", "reactnet")
 
 
 def get_config(name: str):

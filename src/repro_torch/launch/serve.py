@@ -3,36 +3,38 @@
 
 The model's MLP projections are binarised, Huffman-compressed into the
 WeightStore and rebuilt each step from the decode-tile cache (the decode
-kernel runs on misses); requests flow through the slot scheduler.  Under
-``--attn-backend cuda_paged`` (the default) every iteration is one ragged
-mixed step of prefill chunks and decode tokens over the KV page pools,
-and the paged-attention kernel walks the page tables; ``--prefill-chunk
-0`` prefills each prompt alone at admission and installs it into its
-pages instead.  ``--attn-backend gathered`` is the reference's default
-path: monolithic prefill and one monolithic lane per slot unless
-``--prefill-chunk`` / ``--kv-page-size`` are given, attention in plain
-PyTorch over lane views.  ``--kv-codec cluster`` keeps the pages as int8
-codebook codes with per-token scales (decoded inside the kernel, or at
-gather).  It prints the same summary lines as the reference launcher for
-what it supports.
+kernel runs on misses); requests flow through the slot scheduler.  An
+omitted flag means what it means in the reference launcher: gemma2-2b,
+the ``gathered`` backend (attention in plain PyTorch over lane views),
+monolithic prefill at admission (no ``--prefill-chunk``) and one
+monolithic lane per slot (no ``--kv-page-size``).  ``--attn-backend
+cuda_paged`` needs ``--kv-page-size``: the paged-attention kernel walks
+the page tables, and with ``--prefill-chunk`` every iteration is one
+ragged mixed step of prefill chunks and decode tokens over the page
+pools (rolling-window lanes beside them), without it each prompt is
+prefilled alone and installed into its pages.  ``--kv-codec cluster``
+keeps the pages as int8 codebook codes with per-token scales (decoded
+inside the kernel, or at gather).  It prints the same summary lines as
+the reference launcher for what it supports.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --scale tiny --device cpu
-  PYTHONPATH=src python -m repro_torch.launch.serve --scale tiny --device cuda
   PYTHONPATH=src python -m repro_torch.launch.serve --scale tiny \
-      --device cpu --attn-backend gathered [--mode wave]
+      --device cuda --attn-backend cuda_paged --kv-page-size 16 \
+      --prefill-chunk 16
   PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v2-236b \
-      --scale tiny --device cpu --kv-codec cluster
-  PYTHONPATH=src python -m repro_torch.launch.serve --scale full \
-      --batch 4 --requests 8 --prompt-len 128 --gen 16 \
+      --scale tiny --device cpu --kv-page-size 16 --kv-codec cluster
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch minitron-8b \
+      --scale full --batch 4 --requests 8 --prompt-len 128 --gen 16 \
+      --attn-backend cuda_paged --prefill-chunk 64 --kv-page-size 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x22b \
+      --scale full --layers 2 --attn-backend cuda_paged \
       --prefill-chunk 64 --kv-page-size 16
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v2-236b \
-      --scale full --layers 2 --prefill-chunk 64
 
 At ``--scale full`` registration compresses every full-width dense MLP
 matrix on the host first (about 10 s each on the H100 machine; 64 for
-minitron-8b).  deepseek-v2-236b does not fit one card at full depth
-(236B parameters, about 472 GB in bf16), so its full scale needs a
-``--layers`` cut, which keeps its published widths.
+minitron-8b).  deepseek-v2-236b and mixtral-8x22b do not fit one card at
+full depth, so their full scale needs a ``--layers`` cut, which keeps
+their published widths.
 """
 
 from __future__ import annotations
@@ -60,7 +62,9 @@ TINY_OVERRIDES = dict(
 # archs whose full depth does not fit one card, and why
 TOO_DEEP_FOR_ONE_CARD = {
     "deepseek-v2-236b": "236B parameters, about 472 GB in bf16, against "
-                        "80 GB on one H100"}
+                        "80 GB on one H100",
+    "mixtral-8x22b": "141B parameters, about 282 GB in bf16, against 80 GB "
+                     "on one H100"}
 
 
 def tiny_config(arch: str):
@@ -77,6 +81,12 @@ def tiny_config(arch: str):
         if cfg.kv_lora_rank:
             over.update(num_kv_heads=4, kv_lora_rank=32, q_lora_rank=48,
                         rope_head_dim=16, nope_head_dim=32, v_head_dim=32)
+    if cfg.scan_pattern and len(cfg.scan_pattern) > 1:
+        # one repeat of a multi-kind pattern (gemma2: local + global)
+        over.update(scan_repeats=max(1, over["num_layers"]
+                                     // len(cfg.scan_pattern)))
+        over["num_layers"] = over["scan_repeats"] * len(cfg.scan_pattern) \
+            + len(over.get("suffix_kinds", ()))
     return cfg.scaled(**over)
 
 
@@ -127,7 +137,8 @@ def codec_report(pool, m) -> None:
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="minitron-8b", choices=cfgs.PORTED)
+    ap.add_argument("--arch", default="gemma2-2b",
+                    choices=[a for a in cfgs.PORTED if a != "reactnet"])
     ap.add_argument("--scale", choices=["tiny", "full"], default="tiny")
     ap.add_argument("--layers", type=int, default=None,
                     help="at --scale full: cut the depth to this many "
@@ -150,23 +161,22 @@ def main(argv=None):
                     help="slot scheduling: continuous (admit-on-retire) or "
                          "wave (drain before admitting)")
     ap.add_argument("--attn-backend", choices=["gathered", "cuda_paged"],
-                    default="cuda_paged",
-                    help="cuda_paged: the paged-attention kernel walks the "
-                         "page tables in place; gathered: pages are copied "
-                         "into contiguous lane views each step and attended "
-                         "in plain PyTorch (the reference's oracle)")
+                    default="gathered",
+                    help="gathered (default): pages are copied into "
+                         "contiguous lane views each step and attended in "
+                         "plain PyTorch (the reference's oracle); "
+                         "cuda_paged: the paged-attention kernel walks the "
+                         "page tables in place (needs --kv-page-size)")
     ap.add_argument("--prefill-chunk", type=int, default=None,
-                    help="prompt chunk size (0 = monolithic prefill at "
-                         "admission; omitted: 16 under cuda_paged, where "
-                         "chunks ride the mixed step, monolithic under "
-                         "gathered)")
+                    help="prompt chunk size (omit = monolithic prefill at "
+                         "admission); under cuda_paged the chunks ride one "
+                         "mixed step with the decode tokens")
     ap.add_argument("--prefill-budget", type=int, default=None,
                     help="max prefill tokens per scheduler iteration "
                          "(default: one chunk)")
     ap.add_argument("--kv-page-size", type=int, default=None,
-                    help="tokens per KV page (omitted: 16 under "
-                         "cuda_paged, one monolithic lane per slot under "
-                         "gathered)")
+                    help="tokens per KV page (omit = one monolithic lane "
+                         "per slot; cuda_paged needs it)")
     ap.add_argument("--kv-pages", type=int, default=None,
                     help="page-pool size (default: fully backs every slot)")
     ap.add_argument("--kv-codec", choices=list(kvc.KV_CODECS),
@@ -182,12 +192,6 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
-    paged_default = 16 if args.attn_backend == "cuda_paged" else None
-    if args.prefill_chunk is None:
-        args.prefill_chunk = paged_default
-    if args.kv_page_size is None:
-        args.kv_page_size = paged_default
-    args.prefill_chunk = args.prefill_chunk or None
     if args.kv_page_size is not None and args.kv_page_size <= 0:
         ap.error("--kv-page-size must be positive")
     if args.scale == "tiny":

@@ -6,17 +6,20 @@ reference's ``init_params`` (``embed``, ``final_norm``, ``lm_head``,
 carries across leaf for leaf (:func:`params_from_numpy`).  The scan over
 repeats becomes a Python loop over the stacked leaves' first axis.
 
-Ported: dense attention blocks (kinds ``"attn"``, the minitron stack, and
-``"swa"``, a rolling-window lane), MLA blocks with a dense MLP or shared +
-routed experts (``"mla_dense"``, ``"mla_moe"``, the deepseek-v2 stack),
-and every step function of the reference's serving and scoring paths:
-:func:`forward`/:func:`backbone` without a cache, monolithic
+Ported: dense attention blocks (kinds ``"attn"`` and ``"global"``, full
+history, and ``"swa"`` and ``"local"``, a sliding window), the Mixtral
+block (``"swa_moe"``: a sliding window and routed experts), gemma2's
+sandwich norms (``cfg.post_norms``), MLA blocks with a dense MLP or
+shared + routed experts (``"mla_dense"``, ``"mla_moe"``, the deepseek-v2
+stack), and every step function of the reference's serving and scoring
+paths: :func:`forward`/:func:`backbone` without a cache, monolithic
 :func:`prefill`, :func:`prefill_chunk` and :func:`decode_step` over lane
 caches (``kv_quant`` rounds new K/V through the codec, as the gathered
 backend does under ``kv_codec="cluster"``), and the ragged
 :func:`mixed_step` of the in-kernel backend over page pools, fp or int8
-code pools plus a scale-pool tree.  Caches are updated in place.  Other
-block kinds raise ``NotImplementedError``.
+code pools plus a scale-pool tree, with rolling-window lanes beside them.
+Caches are updated in place.  Other block kinds raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -28,11 +31,13 @@ from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (embed_init, mlp_apply, mlp_init,
                                        rms_norm, rms_norm_init, softcap)
-from repro_torch.tree import params_from_numpy, tree_map  # noqa: F401
+from repro_torch.tree import (params_from_numpy, tree_leaves,  # noqa: F401
+                              tree_map)
 
 MOE_KINDS = ("swa_moe", "mla_moe", "moe")
 MLA_KINDS = ("mla_dense", "mla_moe")
-PORTED_KINDS = ("attn", "swa", "mla_dense", "mla_moe")
+PORTED_KINDS = ("attn", "swa", "local", "global", "swa_moe", "mla_dense",
+                "mla_moe")
 
 
 def check_supported(cfg) -> None:
@@ -40,10 +45,16 @@ def check_supported(cfg) -> None:
     kinds = set(cfg.prefix_kinds) | set(cfg.scan_pattern) \
         | set(cfg.suffix_kinds)
     missing = sorted(kinds - set(PORTED_KINDS))
-    if missing or cfg.post_norms:
+    if missing:
         raise NotImplementedError(
-            f"{cfg.name}: block kinds {missing or kinds} / post_norms="
-            f"{cfg.post_norms} are not ported to repro_torch yet")
+            f"{cfg.name}: block kinds {missing} are not ported to "
+            f"repro_torch yet")
+
+
+def _attn_kind(kind: str) -> str:
+    """Map block kind -> attention variant (the reference's map)."""
+    return {"swa": "swa", "swa_moe": "swa", "local": "local",
+            "attn_local": "local", "bidir": "bidir"}.get(kind, "attn")
 
 
 # ---------------------------------------------------------------------------
@@ -60,6 +71,9 @@ def block_init(kind: str, cfg, gen, dtype, device) -> dict:
         p["moe"] = moe_mod.moe_init(gen, cfg, dtype, device)
     elif cfg.d_ff:
         p["mlp"] = mlp_init(gen, d, cfg.d_ff, cfg.mlp_act, dtype, device)
+    if cfg.post_norms:
+        p["post_ln1"] = rms_norm_init(d, dtype, device)
+        p["post_ln2"] = rms_norm_init(d, dtype, device)
     return p
 
 
@@ -69,7 +83,8 @@ def block_apply(kind: str, cfg, p: dict, x: torch.Tensor, *, cache=None,
                 per_lane: bool = False):
     """-> (x, aux loss, None for a block without an MoE): attention (GQA,
     or MLA for the MLA kinds), then the MLP (binarised when
-    ``cfg.binarize_mlp``, the compressed serving mode) or the MoE.
+    ``cfg.binarize_mlp``, the compressed serving mode) or the MoE, each
+    output normed again under ``cfg.post_norms`` before the residual add.
     ``cache`` (and under the codec ``scales``, this block's scale pools
     with the cache's keys, implying int8 code pools) is updated in place; ``paged`` says it holds page pools, else lanes
     (see ``attention.attn_apply``).  ``per_lane`` runs every batch row as
@@ -81,8 +96,10 @@ def block_apply(kind: str, cfg, p: dict, x: torch.Tensor, *, cache=None,
     if kind in MLA_KINDS:
         y = attn.mla_apply(p["attn"], h, cfg, **kw)[0]
     else:
-        y = attn.attn_apply(p["attn"], h, cfg, kind=kind,
+        y = attn.attn_apply(p["attn"], h, cfg, kind=_attn_kind(kind),
                             prefix_len=prefix_len, **kw)[0]
+    if cfg.post_norms:
+        y = rms_norm(p["post_ln1"], y, cfg.norm_eps)
     x = x + y
     aux = None
     if "moe" in p or "mlp" in p:
@@ -93,6 +110,8 @@ def block_apply(kind: str, cfg, p: dict, x: torch.Tensor, *, cache=None,
         else:
             y2 = mlp_apply(p["mlp"], h2, cfg.mlp_act,
                            binarized=cfg.binarize_mlp)
+        if cfg.post_norms:
+            y2 = rms_norm(p["post_ln2"], y2, cfg.norm_eps)
         x = x + y2
     return x, aux
 
@@ -101,7 +120,7 @@ def block_cache_spec(kind: str, cfg, batch: int, max_len: int) -> dict:
     """Shape/dtype stand-ins (meta tensors) of one block's KV cache."""
     if kind in MLA_KINDS:
         return attn.mla_cache_spec(cfg, batch, max_len)
-    return attn.attn_cache_spec(cfg, kind, batch, max_len)
+    return attn.attn_cache_spec(cfg, _attn_kind(kind), batch, max_len)
 
 
 # ---------------------------------------------------------------------------
@@ -186,23 +205,38 @@ def _unembed(cfg, params, x):
 
 
 def _run_stack(cfg, params, cache, x, *, pos=None, prefix_len: int = 0,
-               ctx=None, q_lens=None, scales=None, kv_quant: bool = False,
-               per_lane: bool = False):
+               flags=None, ctx=None, q_lens=None, scales=None,
+               kv_quant: bool = False, per_lane: bool = False):
     """prefix + scan repeats + suffix blocks -> (x, the MoE blocks' aux
     losses in block order; only the scoring forward sums them).
 
     The one block walker behind every step function; they differ in how
     ``x`` is embedded, which positions ride along and which logits are
     kept.  ``cache`` (None: no cache, the scoring forward) holds lanes, or
-    page pools with ``ctx`` (an ``attention.PagedContext``); ``scales``
-    (the codec's scale-pool tree mirroring ``cache``) rides the pools.
-    Every block updates its part in place: scan-stacked leaves are sliced
-    per repeat (``a[r]``, a view), so writes land in the caller's trees."""
-    def block(kind, p, x, at):
+    page pools with ``ctx`` (an ``attention.PagedContext``) beside lanes:
+    ``flags`` (a tree of bools mirroring ``cache``) says which leaves are
+    pools, and a block whose leaves are all pools runs on them with
+    ``ctx``, one whose leaves are all lanes on its lanes.  ``scales`` (the
+    codec's scale-pool tree mirroring ``cache``, None at lane leaves)
+    rides the pools.  Every block updates its part in place: scan-stacked
+    leaves are sliced per repeat (``a[r]``, a view), so writes land in the
+    caller's trees."""
+    def block_ctx(f):
+        leaves = tree_leaves(f)
+        assert all(leaves) or not any(leaves), \
+            "mixed paged/lane cache leaves within one block"
+        return ctx if leaves and all(leaves) else None
+
+    def block(kind, p, x, sub, leaf=lambda a: a):
+        # ``sub`` picks the block's subtree of a cache-shaped tree, ``leaf``
+        # slices each of its leaves (a scan repeat)
+        paged = None if flags is None else block_ctx(sub(flags))
         return block_apply(
-            kind, cfg, p, x, cache=None if cache is None else at(cache),
-            pos=pos, prefix_len=prefix_len, paged=ctx, q_lens=q_lens,
-            scales=None if scales is None else at(scales),
+            kind, cfg, p, x,
+            cache=None if cache is None else tree_map(leaf, sub(cache)),
+            pos=pos, prefix_len=prefix_len, paged=paged, q_lens=q_lens,
+            scales=None if scales is None or paged is None
+            else tree_map(leaf, sub(scales)),
             kv_quant=kv_quant, per_lane=per_lane)
 
     auxes = []
@@ -213,8 +247,7 @@ def _run_stack(cfg, params, cache, x, *, pos=None, prefix_len: int = 0,
         for i, kind in enumerate(cfg.scan_pattern):
             x, a = block(kind, tree_map(lambda t: t[r],
                                         params["scan"][f"b{i}"]), x,
-                         lambda t: tree_map(lambda a: a[r],
-                                            t["scan"][f"b{i}"]))
+                         lambda t: t["scan"][f"b{i}"], lambda a: a[r])
             auxes.append(a)
     for i, kind in enumerate(cfg.suffix_kinds):
         x, a = block(kind, params["suffix"][i], x, lambda t: t["suffix"][i])
@@ -288,26 +321,33 @@ def mixed_step(cfg, params, cache, table, tokens, poss, q_lens, *,
     decode token, or nothing — out of the padded block ``tokens`` (S, Q),
     starting at position ``poss[s]``.
 
-    ``cache`` has the tree of :func:`init_cache_specs` with every leaf a
-    physical page pool ``(repeats?, n_pages, page, KH, D)`` (MLA:
-    ``(repeats?, n_pages, page, r_kv)`` and ``(..., dr)``); ``table``
-    (S, P) maps logical to physical pages.  The pools are updated in place
-    and returned.  -> (logits (S, Q, V) f32, cache); rows past
+    ``cache`` has the tree of :func:`init_cache_specs`; ``paged_flags``
+    (one bool a leaf, in :func:`tree_leaves` order, from
+    ``models.api.cache_layout``) says which leaves are page pools.  A
+    pageable leaf is a physical page pool ``(repeats?, n_pages, page, KH,
+    D)`` (MLA: ``(repeats?, n_pages, page, r_kv)`` and ``(..., dr)``) shared
+    by all slots; ``table`` (S, P) maps logical to physical pages and the
+    kernel walks it.  Any other leaf is a rolling-window lane per slot,
+    ``(repeats?, S, W, KH, D)``: its block runs the lane chunk attention
+    with ragged ``q_lens``, writing after attending and dropping the rows
+    past ``q_lens``, in the same step.  The pools and lanes are updated in
+    place and returned.  -> (logits (S, Q, V) f32, cache); rows past
     ``q_lens[s]`` are padding the caller ignores.
 
     ``scales`` (``kv_codec="cluster"``): the scale-pool tree, same tree as
-    ``cache`` with f32 ``(repeats?, n_pages, page)`` pools, beside int8
-    code pools; it is updated in place too and the return grows to
-    ``(logits, cache, scales)``.  Lane leaves beside the pools (rolling
-    windows) are not ported here and raise."""
-    if not all(paged_flags):
-        raise NotImplementedError("lane-backed cache leaves beside the page "
-                                  "pools are not ported to mixed_step yet")
+    ``cache`` with f32 ``(repeats?, n_pages, page)`` pools at the pageable
+    leaves (beside int8 code pools) and None at the lanes, which stay raw;
+    it is updated in place too and the return grows to ``(logits, cache,
+    scales)``."""
     if pages_per_step != 1:
         raise NotImplementedError("pages_per_step > 1 is not ported yet")
+    specs = init_cache_specs(cfg, 1, page_size)
+    flat = iter(paged_flags)
+    flags = tree_map(lambda _: next(flat), specs)
     ctx = attn.PagedContext(table=table, page_size=page_size)
     x, _ = _run_stack(cfg, params, cache, _embed_step(cfg, params, tokens),
-                      pos=poss, ctx=ctx, q_lens=q_lens, scales=scales)
+                      pos=poss, flags=flags, ctx=ctx, q_lens=q_lens,
+                      scales=scales)
     x = rms_norm(params["final_norm"], x, cfg.norm_eps)
     if scales is not None:
         return _unembed(cfg, params, x), cache, scales

@@ -36,9 +36,8 @@ Invariants, as in the reference:
     need; allocation during serving draws from that reservation.
 
 Not ported yet, and refused with ``NotImplementedError`` rather than
-served some other way: prefix sharing, speculative decoding, the kernel
-autotuner, and rolling-window lane leaves beside the page pools under
-``cuda_paged``.
+served some other way: prefix sharing, speculative decoding and the kernel
+autotuner.
 """
 
 from __future__ import annotations
@@ -346,12 +345,16 @@ class SlotPool:
       ``kv_codec="cluster"`` the pools hold int8 codes with
       ``page_scales`` beside them, ``(page_capacity, *lead, page_size)``
       f32;
-    * ``backend="cuda_paged"``: each leaf becomes a pool ``(repeats?,
-      page_capacity, page_size, KH, D)`` in the kernel's layout, handed
-      with the page table to ``mixed_step``, whose kernel walks the table
-      in place; ``kscales`` is the codec's scale-pool tree ``(repeats?,
-      page_capacity, page_size)``.  Lane leaves beside these pools are not
-      ported and raise.
+    * ``backend="cuda_paged"``: each pageable leaf becomes a pool
+      ``(repeats?, page_capacity, page_size, KH, D)`` in the kernel's
+      layout, handed with the page table to ``mixed_step``, whose kernel
+      walks the table in place; ``kscales`` is the codec's scale-pool tree
+      ``(repeats?, page_capacity, page_size)``.  A leaf that does not page
+      (a rolling window shorter than the slot) is a lane in the kernel
+      layout, ``(repeats?, n_slots, W, KH, D)``: its slot axis where the
+      batch axis sits and the W rolling rows behind it, raw under the
+      codec (None in ``kscales``); its block attends on the lanes in the
+      same ``mixed_step``.  When no leaf pages, the kernel never runs.
 
     Pages are allocated on demand as a slot's writes reach them and
     released at retire; page 0 is the dummy sink.  ``page_capacity``
@@ -409,11 +412,6 @@ class SlotPool:
         self._batch_axis, self._paged_axis = cache_layout(
             engine.api, engine.cfg, slot_len)
         self.paged_flags = tuple(ax is not None for ax in self._paged_axis)
-        if backend == "cuda_paged" and not all(self.paged_flags):
-            raise NotImplementedError(
-                "rolling-window lane leaves beside the page pools under "
-                "attn_backend='cuda_paged' are not ported to repro_torch "
-                "yet; serve this arch with attn_backend='gathered'")
         if n_pages is None:
             n_pages = n_slots * self.pages_per_slot + 1   # +1: dummy sink
         if n_pages < self.pages_per_slot + 1:
@@ -445,22 +443,29 @@ class SlotPool:
             self.gather_bytes_per_step = 0
             self.gather_bytes_avoided_per_step = view_bytes
 
-            def pools(leaf):
-                """One pool per leaf: its batch axis becomes the physical
-                page axis, its length axis the page rows."""
-                axes = iter(self._paged_axis)
+            def pools(leaf, lane):
+                """One buffer per leaf: a pageable leaf's batch axis
+                becomes the physical page axis and its length axis the
+                page rows; any other leaf is ``lane(spec, batch axis)``."""
+                axes = iter(zip(self._paged_axis, self._batch_axis))
 
                 def make(spec):
-                    ax = next(axes)
+                    ax, bax = next(axes)
+                    if ax is None:
+                        return lane(spec, bax)
                     tail, dtype = leaf(spec, ax)
                     return torch.zeros((*spec.shape[:ax - 1], cap,
                                         page_size, *tail), dtype=dtype,
                                        device=dev)
                 return tree_map(make, self._specs)
 
-            self.kcache = pools(lambda spec, ax: (spec.shape[ax + 1:],
-                                                  code_dtype(spec)))
-            self.kscales = pools(lambda spec, ax: ((), torch.float32)) \
+            self.kcache = pools(
+                lambda spec, ax: (spec.shape[ax + 1:], code_dtype(spec)),
+                lambda spec, bax: torch.zeros(
+                    (*spec.shape[:bax], n_slots, *spec.shape[bax + 1:]),
+                    dtype=spec.dtype, device=dev))
+            self.kscales = pools(lambda spec, ax: ((), torch.float32),
+                                 lambda spec, bax: None) \
                 if self.codec else None
             return
         self.gather_bytes_per_step = view_bytes
@@ -538,14 +543,17 @@ class SlotPool:
             pi += 1
 
     # -- cuda_paged: admission install and page copy ------------------------
-    def _kernel_install(self, cache1, row: torch.Tensor) -> None:
+    def _kernel_install(self, cache1, row: torch.Tensor, i: int) -> None:
         """Install a batch-1 lane cache into the slot's pages ``row`` of
         the kernel-layout pools, encoded into codes + scales under the
-        codec."""
+        codec, and into lane ``i`` of its lane leaves, raw."""
         sleaves = tree_leaves(self.kscales) if self.codec else None
-        for li, (pool, src, ax) in enumerate(zip(
+        for li, (pool, src, ax, bax) in enumerate(zip(
                 tree_leaves(self.kcache), tree_leaves(cache1),
-                self._paged_axis)):
+                self._paged_axis, self._batch_axis)):
+            if ax is None:
+                pool.select(bax, i).copy_(src.squeeze(bax))
+                continue
             # (*lead, 1, L, *rest) -> (*lead, P, page, *rest)
             v = src.reshape(*src.shape[:ax - 1], self.pages_per_slot,
                             self.page_size, *src.shape[ax + 1:])
@@ -564,6 +572,8 @@ class SlotPool:
             if self.codec:
                 pools += tree_leaves(self.kscales)
             for pool, ax in zip(pools, self._paged_axis * 2):
+                if ax is None:           # a lane holds no pages
+                    continue
                 lead = (slice(None),) * (ax - 1)
                 pool[lead + (dst,)] = pool[lead + (src,)]
             return
@@ -606,12 +616,18 @@ class SlotPool:
                 return torch.cat([pool, pad], dim=axis)
 
             if self.backend == "cuda_paged":
+                # lanes (and their None scales) are per slot: left alone
                 axes = iter(self._paged_axis)
-                self.kcache = tree_map(lambda p: grow(p, next(axes) - 1),
-                                       self.kcache)
+
+                def grow_leaf(p):
+                    ax = next(axes)
+                    return p if ax is None else grow(p, ax - 1)
+
+                self.kcache = tree_map(grow_leaf, self.kcache)
                 if self.codec:
-                    self.kscales = tree_map(lambda s: grow(s, s.ndim - 2),
-                                            self.kscales)
+                    self.kscales = tree_map(
+                        lambda s: s if s is None else grow(s, s.ndim - 2),
+                        self.kscales)
             else:
                 self.pages = [grow(p, 0) for p in self.pages]
                 self.page_scales = [grow(s, 0) for s in self.page_scales]
@@ -655,7 +671,7 @@ class SlotPool:
             row = torch.from_numpy(self.table[slot.index].astype(
                 np.int64)).to(self.engine.device)
             if self.backend == "cuda_paged":
-                self._kernel_install(cache1, row)
+                self._kernel_install(cache1, row, slot.index)
             else:
                 self._lane_scatter(cache1, row, slot.index)
         else:
@@ -688,15 +704,18 @@ class SlotPool:
             return 0.0
         scales = tree_leaves(self.kscales) \
             if self.backend == "cuda_paged" else self.page_scales
-        top = max((float(s.max()) for s in scales), default=0.0)
+        top = max((float(s.max()) for s in scales if s is not None),
+                  default=0.0)
         return float(kv_codec_mod.error_bound(top))
 
     def code_pools(self) -> list:
         """The int8 code pools under the codec (for the at-rest report)."""
         if not self.codec:
             return []
-        return tree_leaves(self.kcache) if self.backend == "cuda_paged" \
-            else list(self.pages)
+        if self.backend == "gathered":
+            return list(self.pages)
+        return [c for c, ax in zip(tree_leaves(self.kcache),
+                                   self._paged_axis) if ax is not None]
 
     # -- stepping -----------------------------------------------------------
     def mixed_step(self, params, toks, poss, q_lens) -> torch.Tensor:

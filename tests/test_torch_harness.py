@@ -91,6 +91,8 @@ _PORT_MODULES = {
     "repro_torch.configs.deepseek_v2_236b", "repro_torch.models.attention",
     "repro_torch.models.api", "repro_torch.runtime.scheduler",
     "repro_torch.runtime.metrics", "repro_torch.launch.serve",
+    "repro_torch.configs.phi3_medium_14b", "repro_torch.configs.h2o_danube_1_8b",
+    "repro_torch.configs.gemma2_2b", "repro_torch.configs.mixtral_8x22b",
 }
 
 
@@ -104,5 +106,5 @@ def test_port_imports_neither_jax_nor_repro():
                          timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
     names, bad = out.stdout.split("|")
-    assert _PORT_MODULES <= set(names.split()) and len(names.split()) >= 35
+    assert _PORT_MODULES <= set(names.split()) and len(names.split()) >= 39
     assert bad.strip() == "[]", out.stdout

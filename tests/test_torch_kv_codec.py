@@ -351,8 +351,10 @@ def test_unknown_codec_is_refused(engines):
 
 
 def test_serve_launcher_prints_the_codec_lines(capsys):
-    done = serve_launch.main(["--scale", "tiny", "--device", "cpu",
-                              "--kv-codec", "cluster", "--batch", "2",
+    done = serve_launch.main(["--arch", "minitron-8b", "--scale", "tiny",
+                              "--device", "cpu", "--attn-backend",
+                              "cuda_paged", "--kv-codec", "cluster",
+                              "--batch", "2",
                               "--requests", "3", "--prompt-len", "20",
                               "--gen", "5", "--prefill-chunk", "8",
                               "--kv-page-size", "4"])

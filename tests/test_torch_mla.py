@@ -425,7 +425,8 @@ def test_serve_launcher_deepseek_tiny_cpu(capsys, codec):
                               "cpu", "--batch", "2", "--requests", "3",
                               "--prompt-len", "20", "--gen", "5",
                               "--prefill-chunk", "8", "--kv-page-size", "4",
-                              "--kv-codec", codec])
+                              "--kv-codec", codec, "--attn-backend",
+                              "cuda_paged"])
     assert len(done) == 3 and all(len(r.generated) == 5 for r in done)
     out = capsys.readouterr().out
     for line in ("weight store: 3 compressed MLP tensors", "served 3 "

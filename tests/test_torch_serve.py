@@ -10,6 +10,9 @@
   default run — monolithic prefill over gathered lanes, the oracle that
   ``tests/test_mixed_step.py`` uses — at pages 4 and 8 and chunks 1, 3, 4
   and 7, including 1-token final chunks.
+* Rolling-window lanes beside the pools under ``cuda_paged`` (a reduced
+  minitron with ``swa`` blocks) give the JAX ``pallas_paged`` run's
+  tokens, chunked and monolithic.
 * The port's serve launcher runs at ``--scale tiny --device cpu``.
 """
 
@@ -229,27 +232,40 @@ def test_unported_flags_are_refused(engines, kw):
 
 
 @pytest.fixture(scope="module")
-def swa_engine():
-    """A reduced minitron whose blocks are ``swa`` with a window of 8: at
-    any slot length past 8 its K/V leaves are rolling lanes, not pages."""
-    cfg = reduced_torch("minitron-8b").scaled(scan_pattern=("swa",),
-                                              window=8)
-    tree = jax_params(reduced_jax("minitron-8b"), seed=0)
-    return ServeEngine(cfg, torch_params(tree), device="cpu")
+def swa_engines():
+    """A reduced minitron whose blocks are ``swa`` with a window of 8, in
+    both packages (unit-scale MLPs): at any slot length past 8 its K/V
+    leaves are rolling lanes, not pages."""
+    over = dict(scan_pattern=("swa",), window=8)
+    tree = unit_scale_mlp(jax_params(reduced_jax("minitron-8b").scaled(
+        **over), seed=0))
+    jengine = JaxServeEngine(reduced_jax("minitron-8b").scaled(**over), tree)
+    engine = ServeEngine(reduced_torch("minitron-8b").scaled(**over),
+                         torch_params(tree), device="cpu")
+    return engine, jengine, mixed_requests(jengine, MIXED)
 
 
 @pytest.mark.parametrize("chunk", [3, None])
-def test_lane_leaves_beside_pools_are_refused(swa_engine, chunk):
-    """Under cuda_paged, rolling-window lanes beside the page pools are
-    not ported: the pool refuses them when it probes the layout, on the
-    mixed path and on the monolithic install path alike."""
-    sched = Scheduler(swa_engine, kv_page_size=4, prefill_chunk=chunk,
-                      attn_backend="cuda_paged")
-    sched.submit(np.arange(12) % 128, 3)
-    with pytest.raises(NotImplementedError, match="rolling-window"):
-        sched.run()
-    with pytest.raises(NotImplementedError, match="rolling-window"):
-        SlotPool(swa_engine, 2, 32, page_size=4, backend="cuda_paged")
+def test_lane_leaves_beside_pools_serve_like_the_reference(
+        swa_engines, chunk, monkeypatch):
+    """Under cuda_paged, rolling-window lanes beside the page pools (here
+    every leaf a lane) serve, on the mixed path and on the monolithic
+    install path alike, to the tokens of the JAX ``pallas_paged`` run of
+    the same chunking (its kernel interpreted; the alias of the renamed
+    compiler-params class is scoped to this test)."""
+    from jax.experimental.pallas import tpu as pltpu
+    monkeypatch.setattr(pltpu, "TPUCompilerParams", pltpu.CompilerParams,
+                        raising=False)
+    engine, jengine, reqs = swa_engines
+    want = jax_serve(jengine, reqs, kv_page_size=4, prefill_chunk=chunk,
+                     attn_backend="pallas_paged")
+    got, sched = port_serve(engine, reqs, kv_page_size=4,
+                            prefill_chunk=chunk)
+    assert_tokens_identical(got, want, f"swa lanes chunk {chunk}")
+    assert sched._pool.paged_flags == (False, False)
+    assert SlotPool(engine, 2, 32, page_size=4,
+                    backend="cuda_paged").kcache["scan"]["b0"]["k"].shape \
+        == (2, 2, 8, 2, 16)
 
 
 def test_cuda_device_without_a_card_raises():
@@ -261,8 +277,9 @@ def test_cuda_device_without_a_card_raises():
 
 
 def test_serve_launcher_tiny_cpu(capsys):
-    done = serve_launch.main(["--scale", "tiny", "--device", "cpu",
-                              "--batch", "2", "--requests", "3",
+    done = serve_launch.main(["--arch", "minitron-8b", "--scale", "tiny",
+                              "--device", "cpu", "--attn-backend",
+                              "cuda_paged", "--batch", "2", "--requests", "3",
                               "--prompt-len", "20", "--gen", "5",
                               "--prefill-chunk", "8", "--kv-page-size", "4"])
     assert len(done) == 3 and all(len(r.generated) == 5 for r in done)
