@@ -53,6 +53,23 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` with nvcc
   path with the gathered one for each (and gemma2 at the cut window), and
   serves each tiny config (gemma2 also at window 16) on card and CPU to
   the same tokens;
+* prefix sharing and speculative decoding: the GQA and MLA kernels on
+  verify blocks (Q=5 ragged, blocks across page boundaries, two slots'
+  tables mapping the same physical pages; the GQA kernel's 16-, 32- and
+  64-row blocks as S grows) against their plain versions; the full-width
+  minitron serves requests sharing a 128-token prefix with sharing off,
+  with sharing, and with sharing plus n-gram and draft-model speculation
+  (deepseek the last three, gemma2 at the cut window the speculative two
+  beside its rolling lanes), each from a cold tile cache with prefix
+  hits, reused tokens, skipped chunks and copies on write checked against
+  what the prompts and the chunk floor predict, the pool drained to the
+  index's references, launches = kernel-backend steps x pooled blocks,
+  steps by width, drafts and acceptance printed, and a warm run
+  profiled; at both models' widths (uncompressed bf16 MLPs) a Q=5 block
+  scored in one mixed step against five Q=1 steps, and a slot on mapped
+  prefix pages against one that computed them, within the ulp floor of
+  the logits check, which a planted one-row page shift must break; the
+  small models give the CPU's tokens and counters on ``SHARED_PATHS``;
 * the paper's BNN: times the int8 and binary mma.sync probe, prints the
   fused and contraction kernels' registers, spills, shared memory and
   launch plans, holds the binarize-pack ((M, K) rows and 3x3 patches
@@ -79,6 +96,7 @@ and for binary MMAs 8x the int8 one (``B1_TC_OPS_PER_S``).
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import copy
 import dataclasses
@@ -115,6 +133,9 @@ from repro_torch.models import reactnet as rn  # noqa: E402
 from repro_torch.models.transformer import init_params  # noqa: E402
 from repro_torch.runtime import (  # noqa: E402
     Request, Scheduler, ServeEngine, ServeMetrics, SlotPool)
+from repro_torch.runtime import scheduler as sched_mod  # noqa: E402
+from repro_torch.runtime.drafter import (  # noqa: E402
+    DraftModelDrafter, draft_config)
 from repro_torch.runtime.scheduler import SLOT_LEN_QUANTUM  # noqa: E402
 from repro_torch.tree import (  # noqa: E402
     tree_leaves, tree_map, tree_map_with_path)
@@ -184,6 +205,13 @@ ARCH_LAYERS = {
 # the window the lane checks cut to: shorter than the serve phases' slots
 # (up to 272 positions), so a windowed block's K/V are rolling lanes
 WINDOW_CUT = 64
+
+# prefix sharing and speculation at full width: the serve phases' prompts
+# share their first PREFIX_LEN tokens (each keeps its last one its own);
+# the speculative run drafts DRAFT_K tokens from n-grams of prompts whose
+# tails repeat PATTERN-token patterns; PREFIX_PAGES backs every slot and
+# the index's pages, so the index never evicts
+PREFIX_LEN, DRAFT_K, PATTERN, PREFIX_PAGES = 128, 4, 8, 160
 
 # ReActNet-A phase: the full model at its published shapes
 RN_BATCH = 32
@@ -336,8 +364,12 @@ def phase_huffman(engine, expect) -> dict:
             "shape": f"T={t} W={w} S={s} C={c}"}
 
 
-def _attn_inputs(dev, qn, q_lens, lengths, pps, gen, h=32, kh=8, d=128):
-    s_n, page = SERVE_BATCH, SERVE_PAGE
+def _attn_inputs(dev, qn, q_lens, lengths, pps, gen, h=32, kh=8, d=128,
+                 s_n=SERVE_BATCH, shared=False):
+    """Ragged kernel inputs over random bf16 pools (S = ``s_n``);
+    ``shared``: slot 3's first two logical pages map slot 1's physical
+    pages, as two tables do that map one cached prefix."""
+    page = SERVE_PAGE
     n_pages = s_n * pps + 1
     k = torch.randn((n_pages, page, kh, d), generator=gen, device=dev)
     v = torch.randn((n_pages, page, kh, d), generator=gen, device=dev)
@@ -348,6 +380,8 @@ def _attn_inputs(dev, qn, q_lens, lengths, pps, gen, h=32, kh=8, d=128):
     # dummy sink
     owned = -(-torch.tensor(lengths, device=dev) // page)
     table[torch.arange(pps, device=dev)[None] >= owned[:, None]] = 0
+    if shared:
+        table[3, :2] = table[1, :2]
     q = torch.randn((s_n, qn, h, d), generator=gen, device=dev) * d ** -0.5
     as_i32 = lambda x: torch.tensor(x, dtype=torch.int32, device=dev)
     return q, k, v, table, as_i32(lengths), as_i32(q_lens)
@@ -630,6 +664,7 @@ def _serve(engine, prompts, **kw):
     if len(done) != len(prompts) or \
             any(len(r.generated) != SERVE_GEN for r in done):
         fail("not every request completed with its full token budget")
+    sched.completed = done
     return {r.rid: tuple(r.generated) for r in done}, wall, sched
 
 
@@ -879,15 +914,15 @@ def _installed_pool(engine, params, firsts, slot_len, **kw):
     return pool
 
 
-def _shift_first_page(pool) -> None:
-    """The planted fault: slot 0's first page in every kernel-layout pool,
-    and slot 0's rolling lane beside them, shifted down by one row (row 0
-    repeated, the last key lost), as an install that is one token off
+def _shift_first_page(pool, slot: int = 0) -> None:
+    """The planted fault: the slot's first page in every kernel-layout
+    pool, and its rolling lane beside them, shifted down by one row (row
+    0 repeated, the last key lost), as an install that is one token off
     would leave them."""
-    page = int(pool.table[0, 0])
+    page = int(pool.table[slot, 0])
     for leaf, ax, bax in zip(tree_leaves(pool.kcache), pool._paged_axis,
                              pool._batch_axis):
-        rows = leaf.select(bax, 0).movedim(bax, 0) if ax is None else \
+        rows = leaf.select(bax, slot).movedim(bax, 0) if ax is None else \
             leaf.select(ax - 1, page).movedim(ax - 1, 0)
         rows[1:] = rows[:-1].clone()
 
@@ -991,36 +1026,100 @@ SMALL_PATHS = (
 )
 
 
-def phase_small_reference(dev, cfg, label) -> None:
+# prefix sharing (both backends, fp and codec) and speculation (n-gram
+# and draft model; monolithic lanes, gathered pages, cuda_paged), card
+# against CPU with their counters, on prompts extending one 16-token
+# prefix and prompts repeating a pattern
+SHARED_PATHS = (
+    dict(prefill_chunk=3, kv_page_size=4, prefix_share=True),
+    dict(prefill_chunk=4, kv_page_size=8, prefix_share=True,
+         kv_codec="cluster"),
+    dict(attn_backend="gathered", prefill_chunk=3, kv_page_size=4,
+         prefix_share=True),
+    dict(attn_backend="gathered", prefill_chunk=4, kv_page_size=8,
+         prefix_share=True, kv_codec="cluster"),
+    dict(attn_backend="gathered", speculate="ngram"),
+    dict(attn_backend="gathered", speculate="draft"),
+    dict(attn_backend="gathered", kv_page_size=4, speculate="ngram"),
+    dict(attn_backend="gathered", kv_page_size=4, speculate="draft",
+         kv_codec="cluster"),
+    dict(prefill_chunk=3, kv_page_size=4, speculate="ngram"),
+    dict(prefill_chunk=3, kv_page_size=4, speculate="draft"),
+    dict(kv_page_size=2, speculate="ngram", draft_k=6),
+    dict(prefill_chunk=4, kv_page_size=4, prefix_share=True,
+         speculate="ngram", draft_k=6),
+)
+SHARED_COUNTERS = ("prefix_hits", "prefix_tokens_reused",
+                   "prefix_cow_copies", "prefix_evictions", "spec_rounds",
+                   "spec_draft_tokens", "spec_accepted_tokens",
+                   "decode_steps")
+
+
+def phase_small_reference(dev, cfg, label, shared: bool = False) -> None:
     """A small model served on the card gives the CPU's tokens, on every
-    path of ``SMALL_PATHS``.  Its dense MLP weights are +-1 (unit scale),
-    so every binarised product is an exact integer on either device; with
-    other scales, a unit whose +-alpha terms cancel exactly is rounding
-    noise whose sign follows the BLAS's summation order (as it does in the
-    JAX reference)."""
-    params = tree_map_with_path(
+    path of ``SMALL_PATHS`` (and with ``shared``, on its own requests, of
+    ``SHARED_PATHS``, with equal prefix and speculation counters).  Its dense MLP weights
+    are +-1 (unit scale), so every binarised product is an exact integer
+    on either device; with other scales, a unit whose +-alpha terms
+    cancel exactly is rounding noise whose sign follows the BLAS's
+    summation order (as it does in the JAX reference).  The draft model
+    is one tree made on the CPU, its MLPs at unit scale too, given to
+    both devices' drafters."""
+    unit = lambda tree: tree_map_with_path(
         lambda path, w: torch.where(w >= 0, 1.0, -1.0)
-        if "mlp" in path.split("/") else w,
-        init_params(cfg, torch.Generator().manual_seed(3), "cpu"))
+        if "mlp" in path.split("/") else w, tree)
+    params = unit(init_params(cfg, torch.Generator().manual_seed(3), "cpu"))
     rng = np.random.default_rng(3)
     reqs = [(rng.integers(0, cfg.vocab_size, n), g)
             for n, g in ((5, 7), (12, 2), (20, 5), (6, 9), (3, 1), (9, 4))]
+    common = rng.integers(0, cfg.vocab_size, 16)
+    shared_reqs = [(np.concatenate([common, rng.integers(
+        0, cfg.vocab_size, t)]), g) for t, g in ((3, 5), (5, 4), (2, 6),
+                                                 (6, 3))]
+    shared_reqs += [(np.tile(rng.integers(0, cfg.vocab_size, 3), 4), 12)
+                    for _ in range(2)]
+    paths = SMALL_PATHS + SHARED_PATHS if shared else SMALL_PATHS
+    draft = unit(init_params(draft_config(cfg.vocab_size),
+                             torch.Generator().manual_seed(4), "cpu"))
+    make = sched_mod.make_drafter
+    sched_mod.make_drafter = lambda spec, eng=None: DraftModelDrafter(
+        eng, params=draft) if spec == "draft" else make(spec, eng)
     engines = {str(d): ServeEngine(cfg, params, device=d)
                for d in ("cpu", dev)}
-    for kw in SMALL_PATHS:
-        out = {}
-        for device, engine in engines.items():
-            sched = Scheduler(engine, batch_size=2, buckets=(8, 32),
-                              **{"attn_backend": "cuda_paged", **kw})
-            for r in reqs:
-                sched.submit(*r)
-            out[device] = {r.rid: tuple(r.generated) for r in sched.run()}
-        if out["cpu"] != out[str(dev)]:
-            fail(f"{label} ({kw}) on the card gave other tokens than on "
-                 f"the CPU: {out}")
+    notes, counts = [], {}
+    try:
+        for kw in paths:
+            out = {}
+            for device, engine in engines.items():
+                engine.metrics = ServeMetrics()
+                sched = Scheduler(engine, batch_size=2, buckets=(8, 32),
+                                  emit=notes.append,
+                                  **{"attn_backend": "cuda_paged", **kw})
+                for r in shared_reqs if kw in SHARED_PATHS else reqs:
+                    sched.submit(*r)
+                out[device] = ({r.rid: tuple(r.generated)
+                                for r in sched.run()},
+                               {k: getattr(engine.metrics, k)
+                                for k in SHARED_COUNTERS})
+            if out["cpu"] != out[str(dev)]:
+                fail(f"{label} ({kw}) on the card gave other tokens or "
+                     f"counters than on the CPU: {out}")
+            if kw in SHARED_PATHS:
+                counts[str(kw)] = out["cpu"][1]
+    finally:
+        sched_mod.make_drafter = make
     print(f"small reference: {label} ({cfg.d_model} wide, f32) serves "
           f"{len(reqs)} requests to identical tokens on cuda and cpu on "
           f"{len(SMALL_PATHS)} paths: {list(SMALL_PATHS)}")
+    if shared:
+        print(f"small reference: {label} serves {len(shared_reqs)} requests "
+              f"(four extending one 16-token prefix, two repeating a "
+              f"3-token pattern) to identical tokens and counters on cuda "
+              f"and cpu on {len(SHARED_PATHS)} paths:")
+    for kw, c in counts.items():
+        print(f"  {kw}: counters equal on cuda and cpu: {c}")
+    for note in sorted(set(notes)):
+        print(f"  {note}")
 
 
 def phase_decode_wrapper(dev) -> None:
@@ -1069,7 +1168,7 @@ def phase_small_mla_reference(dev) -> None:
     phase_small_reference(
         dev, get_config(MLA_ARCH).scaled(dtype="float32", vocab_size=128,
                                          **SMALL_MLA),
-        "reduced deepseek-v2")
+        "reduced deepseek-v2", True)
 
 
 def phase_fused_operands(engine, dev) -> None:
@@ -1331,13 +1430,21 @@ def phase_serve_mla(dev) -> dict:
     launches, prompts, fp_warm, toks = phase_serve(engine, mla=True)
     codec = phase_serve_codec(engine, prompts, launches, fp_warm, mla=True)
     phase_serve_paths(engine, prompts, toks, BACKEND_PATHS[:2], mla=True)
+    t0 = time.monotonic()
+    prefix = phase_serve_prefix_spec(engine, "serve mla", PREFIX_RUNS[1:],
+                                mla=True)
+    print(f"phase serve mla prefix spec: {time.monotonic() - t0:.1f}s")
     del engine
     torch.cuda.empty_cache()
     phase_decode_logits(cfg, dev, prompts, mla=True)
+    t0 = time.monotonic()
+    phase_verify_logits(cfg, dev, prompts, mla=True)
+    print(f"phase verify logits mla: {time.monotonic() - t0:.1f}s")
     torch.cuda.empty_cache()
     return {"paged_mixed_attention_mla": launches["paged_mixed_attention_mla"],
             "paged_mixed_attention_mla_codec":
-                codec["paged_mixed_attention_mla_codec"]}
+                codec["paged_mixed_attention_mla_codec"],
+            "paged_mla_attention[verify]": _verify_launches(prefix)}
 
 
 def _rn_blocks(cfg=rn.CONFIG):
@@ -1954,17 +2061,19 @@ def phase_small_reactnet(dev) -> None:
 # phi3-medium-14b, h2o-danube-1.8b, gemma2-2b, mixtral-8x22b
 # ---------------------------------------------------------------------------
 
-def _arch_attention_case(dev, cfg, qn, q_lens, lengths, pps, gen) -> dict:
+def _arch_attention_case(dev, cfg, qn, q_lens, lengths, pps, gen,
+                         **inputs) -> dict:
     """The GQA kernel at ``cfg``'s query heads, KV heads and head_dim on
     bf16 pools and on int8 codec pools: against its plain version over
     window {0, 100} x softcap {0, the arch's cap or ATTN_SOFTCAP}
     (ATTN_TOL), page 0 poisoned (inert), the codec kernel with the fp
     kernel's bits on the pools decoded up front into f32; then timed at
     window 0 with the arch's softcap (its published window, 4096, is past
-    every slot of the serve phases) -> worst errors and timings."""
+    every slot of the serve phases) -> worst errors and timings.
+    ``inputs``: more of ``_attn_inputs``'s arguments."""
     h, kh, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q, k, v, table, ln, ql = _attn_inputs(dev, qn, q_lens, lengths, pps,
-                                          gen, h=h, kh=kh, d=d)
+                                          gen, h=h, kh=kh, d=d, **inputs)
     (kc, ks), (vc, vs) = (kv_codec.encode(x, (-2, -1)) for x in (k, v))
     cb = kv_codec.codebook(dev)
     kd, vd = decode_pool(kc, ks, cb), decode_pool(vc, vs, cb)
@@ -2084,21 +2193,43 @@ def phase_attention_archs(dev) -> dict:
 
 @contextlib.contextmanager
 def _steps_counted():
-    """Count ``SlotPool.mixed_step`` calls while the block runs: every
-    step of the kernel backend (a mixed tick, or a Q=1 decode step after
-    a monolithic prefill)."""
-    n = [0]
+    """Count ``SlotPool.mixed_step`` calls while the block runs, by block
+    width Q: every step of the kernel backend (a mixed tick, or a Q=1
+    decode step after a monolithic prefill) -> Counter {Q: steps}."""
+    widths = collections.Counter()
     inner = SlotPool.mixed_step
 
-    def counted(self, *args, **kw):
-        n[0] += 1
-        return inner(self, *args, **kw)
+    def counted(self, params, toks, *args, **kw):
+        widths[int(np.shape(toks)[1])] += 1
+        return inner(self, params, toks, *args, **kw)
 
     SlotPool.mixed_step = counted
     try:
-        yield n
+        yield widths
     finally:
         SlotPool.mixed_step = inner
+
+
+@contextlib.contextmanager
+def _calls_counted(*names):
+    """Count calls of the named ``SlotPool`` methods while the block runs
+    -> Counter {name: calls}."""
+    calls = collections.Counter()
+    inner = {n: getattr(SlotPool, n) for n in names}
+
+    def wrap(name):
+        def counted(self, *args, **kw):
+            calls[name] += 1
+            return inner[name](self, *args, **kw)
+        return counted
+
+    for n in names:
+        setattr(SlotPool, n, wrap(n))
+    try:
+        yield calls
+    finally:
+        for n, f in inner.items():
+            setattr(SlotPool, n, f)
 
 
 def _kernel_blocks(pool) -> int:
@@ -2164,8 +2295,9 @@ def _serve_counted(engine, prompts, label, **kw):
         n_dec = huffman_decode.launches
     pool, m = sched._pool, engine.metrics
     blocks = _kernel_blocks(pool)
-    if n_attn != steps[0] * blocks:
-        fail(f"{label}: {n_attn} attention launches for {steps[0]} steps "
+    n_steps = sum(steps.values())
+    if n_attn != n_steps * blocks:
+        fail(f"{label}: {n_attn} attention launches for {n_steps} steps "
              f"of {blocks} pooled blocks")
     if bool(n_dec) != engine.compressed:
         fail(f"{label}: {n_dec} decode launches, compressed="
@@ -2176,7 +2308,7 @@ def _serve_counted(engine, prompts, label, **kw):
         fail(f"{label}: a second run of the same requests gave other tokens")
     lanes = pool.paged_flags.count(False)
     print(f"{label}: {len(prompts)} requests, launches: attention {n_attn} "
-          f"({steps[0]} kernel-backend steps x {blocks} pooled blocks), "
+          f"({n_steps} kernel-backend steps x {blocks} pooled blocks), "
           f"decode {n_dec}; {lanes} of {len(pool.paged_flags)} cache leaves "
           f"rolling lanes; run 1 {wall:.2f}s, {m.ms_per_token():.2f} ms/step"
           f", {m.tokens_per_s():.1f} tok/s; run 2 (warm) {wall2:.2f}s, "
@@ -2220,6 +2352,11 @@ def phase_serve_arch(arch, dev):
         if lane_blocks != want or (arch == "gemma2-2b") != bool(want):
             fail(f"serve {arch} window {WINDOW_CUT}: {lane_blocks} pooled "
                  f"blocks, expected {want}")
+        if arch == "gemma2-2b":
+            # speculation with rolling lanes beside the pools (prefix
+            # sharing downgrades: a lane cannot ride a shared page)
+            phase_serve_prefix_spec(lane, f"serve {arch} window {WINDOW_CUT}",
+                               PREFIX_RUNS[2:])
     return engine, prompts, n_attn
 
 
@@ -2240,6 +2377,445 @@ def phase_archs(dev, kernels: dict, launches: dict) -> None:
                                 label=f"serve {arch} window {WINDOW_CUT}")
         torch.cuda.empty_cache()
         print(f"phase {arch}: {time.monotonic() - t0:.1f}s")
+
+
+# ---------------------------------------------------------------------------
+# prefix sharing and speculative decoding
+# ---------------------------------------------------------------------------
+
+def _lcp(a, b) -> int:
+    n = 0
+    for x, y in zip(a, b):
+        if x != y:
+            break
+        n += 1
+    return n
+
+
+def _prefix_prompts(vocab: int, pattern: int = 0, seed: int = 0) -> list:
+    """SERVE_PROMPTS-long prompts whose first min(PREFIX_LEN, L - 1) tokens
+    are one common prefix, with tails of their own, random or tiled from
+    a ``pattern``-token pattern each, as the launcher's
+    ``--shared-prefix-len`` and ``--prompt-pattern`` make them."""
+    rng = np.random.default_rng(seed)
+    common = rng.integers(0, vocab, PREFIX_LEN)
+    out = []
+    for n in SERVE_PROMPTS:
+        head = common[:min(PREFIX_LEN, n - 1)]
+        tail_len = n - len(head)
+        if pattern:
+            pat = rng.integers(0, vocab, pattern)
+            tail = np.tile(pat, -(-tail_len // pattern))[:tail_len]
+        else:
+            tail = rng.integers(0, vocab, tail_len)
+        out.append(np.concatenate([head, tail]))
+    return out
+
+
+def _predicted_prefix(done, chunk: int, page: int) -> dict:
+    """What the prefix index must map, from the prompts and the order the
+    run admitted and prefilled them: each request matches the longest
+    common prefix with any request whose prefill completed (and was
+    registered, whole) before its admission, capped below its length and
+    floored to the chunk; a registered prompt with a partial last page,
+    and a match that ends inside a page, each cost one copy on write."""
+    out = dict(hits=0, tokens=0, chunks=0, cow=0)
+    for r in done:
+        best = max((_lcp(r.prompt, q.prompt) for q in done
+                    if q.t_first < r.t_admit), default=0)
+        m = min(best, r.prompt_len - 1)
+        m -= m % chunk
+        out["hits"] += m > 0
+        out["tokens"] += m
+        out["chunks"] += m // chunk
+        out["cow"] += bool(r.prompt_len % page) + bool(m % page)
+    return out
+
+
+def phase_serve_prefix_spec(engine, name, runs, mla=False) -> dict:
+    """Each of ``runs`` (tag, Scheduler arguments, prompt pattern,
+    profiled) on the
+    main path's settings (cuda_paged, chunk 64, page 16, batch 4), from a
+    cold tile cache with the launch counts set to 0 just before it and
+    read just after: prefix hits, reused tokens, skipped chunks and
+    copies on write equal ``_predicted_prefix``; after the drain only the
+    index holds pages, one reference each; attention launches are the
+    kernel backend's steps x pooled blocks exactly; the speculative
+    run's drafts, acceptance and its steps at Q = 1 + DRAFT_K and Q = 1
+    printed (and on rolling lanes, their snapshots and restores).  Then
+    one profiled warm run of each profiled one -> {tag: attention
+    launches at
+    Q = 1 + DRAFT_K}."""
+    out = {}
+    for tag, kw, pattern, profiled in runs:
+        prompts = _prefix_prompts(engine.cfg.vocab_size, pattern)
+        kw = dict(kv_pages=PREFIX_PAGES, **kw)
+        engine.cache.clear()
+        engine.metrics = ServeMetrics()
+        with _steps_counted() as widths, \
+                _calls_counted("spec_snapshot", "spec_restore") as calls:
+            _reset_counts()
+            toks, wall, sched = _serve(engine, prompts, **kw)
+            n_attn = _attn_launches(mla)
+            n_dec = huffman_decode.launches
+        m, pool = engine.metrics, sched._pool
+        blocks = _kernel_blocks(pool)
+        steps = sum(widths.values())
+        label = f"{name} [{tag}]"
+        if n_attn != steps * blocks or not n_dec:
+            fail(f"{label}: {n_attn} attention launches for {steps} steps "
+                 f"of {blocks} pooled blocks, {n_dec} decode launches")
+        got = dict(hits=m.prefix_hits, tokens=m.prefix_tokens_reused,
+                   chunks=m.prefill_chunks_avoided,
+                   cow=m.prefix_cow_copies)
+        want = _predicted_prefix(sched.completed, SERVE_CHUNK, SERVE_PAGE) \
+            if sched.prefix_share else dict(hits=0, tokens=0, chunks=0,
+                                            cow=0)
+        if got != want or m.prefix_evictions:
+            fail(f"{label}: prefix counters {got}, {m.prefix_evictions} "
+                 f"evictions; the prompts predict {want}, no eviction")
+        a = pool.allocator
+        if pool.prefix is not None:
+            if a.reserved or a.shared_pages() or \
+                    a.n_allocated != pool.prefix.n_nodes or \
+                    any(a.refcount(n.page) != 1
+                        for n in pool.prefix._nodes()):
+                fail(f"{label}: after the drain {a.n_allocated} pages "
+                     f"allocated, {a.shared_pages()} shared, {a.reserved} "
+                     f"reserved; the index holds {pool.prefix.n_nodes}")
+            drained = (f"after the drain {a.n_allocated} pages allocated = "
+                       f"the index's {pool.prefix.n_nodes} nodes, "
+                       f"{a.shared_pages()} shared, mean shared pages a "
+                       f"step {m.shared_page_steps / max(m.decode_steps, 1):.2f}")
+        else:
+            drained = "no prefix index"
+        spec = kw.get("speculate", "off")
+        q_spec = 1 + kw.get("draft_k", DRAFT_K)
+        bad = m.spec_draft_tokens != \
+            m.spec_accepted_tokens + m.spec_rejected_tokens
+        bad |= spec == "off" and m.spec_rounds > 0
+        bad |= spec == "draft" and not (m.spec_rounds and widths[q_spec])
+        # rolling lanes are snapshotted on every tick that carries drafts
+        bad |= bool(calls["spec_snapshot"]) != \
+            bool(pool._lane_info and m.spec_rounds)
+        if bad:
+            fail(f"{label}: {m.spec_rounds} speculative rounds, "
+                 f"{m.spec_draft_tokens} drafts, {widths[q_spec]} steps at "
+                 f"Q={q_spec}, {calls['spec_snapshot']} lane snapshots for "
+                 f"{len(pool._lane_info)} lane leaves")
+        print(f"{label}: {len(prompts)} requests, prompts "
+              f"{[len(p) for p in prompts]} sharing their first "
+              f"min({PREFIX_LEN}, L - 1) tokens"
+              f"{f', tails tiled from {pattern}-token patterns' if pattern else ''}"
+              f"; prefix {got['hits']} hits, {got['tokens']} tokens reused, "
+              f"{got['chunks']} chunks skipped, {got['cow']} copies on write "
+              f"(predicted {want}); {drained}; launches: attention {n_attn} "
+              f"({steps} kernel-backend steps x {blocks} pooled blocks), "
+              f"decode {n_dec}; steps by width {dict(sorted(widths.items()))}"
+              f" (Q={q_spec}: {widths[q_spec]}, Q=1: {widths[1]}); drafts "
+              f"{m.spec_draft_tokens}, accepted {m.spec_accepted_tokens} "
+              f"(rate {m.spec_acceptance_rate():.4f}) in {m.spec_rounds} "
+              f"rounds; lane snapshots {calls['spec_snapshot']}, restores "
+              f"{calls['spec_restore']}; {wall:.2f}s cold, "
+              f"{m.ms_per_token():.2f} ms/step, {m.decode_steps} decode "
+              f"steps for {m.tokens_generated} tokens; sample "
+              f"{toks[0][:8]}")
+        out[tag] = widths[q_spec] * blocks
+        if not profiled:
+            continue
+        prof = profile_serve(engine, prompts, **kw)
+        print(f"{label} warm: {prof['ms_step']:.2f} ms/step, device busy "
+              f"{prof['busy_ms']:.1f} ms, attention kernel "
+              f"{prof['attn_ms']:.3f} ms x{prof['attn_launches']}")
+    return out
+
+
+# (a)-(c) as the issue of this slice sets them; (d) drafts with the draft
+# model, which proposes on every decode tick (an n-gram drafter proposes
+# only when the history repeats, which a random model's tokens at a 256k
+# vocabulary may never do), so the kernel runs at Q = 1 + DRAFT_K
+# (tag, Scheduler arguments, prompt pattern, profiled); (d) is not
+# profiled, for the script's time
+PREFIX_RUNS = (
+    ("a: sharing off, speculation off", {}, 0, True),
+    ("b: prefix_share", dict(prefix_share=True), 0, True),
+    ("c: prefix_share + speculate ngram",
+     dict(prefix_share=True, speculate="ngram", draft_k=DRAFT_K), PATTERN,
+     True),
+    ("d: prefix_share + speculate draft",
+     dict(prefix_share=True, speculate="draft", draft_k=DRAFT_K), PATTERN,
+     False),
+)
+
+
+def _verify_launches(counts: dict) -> int:
+    """Attention launches at Q = 1 + DRAFT_K over the speculative runs of
+    ``phase_serve_prefix_spec`` (each counted from 0 around its run); the
+    draft-model run always has some."""
+    n = sum(counts.values())
+    if not n:
+        fail(f"no attention launch at Q = {1 + DRAFT_K}: {counts}")
+    return n
+
+
+def _chunk_prefill(pool, params, slot, start: int, chunk: int):
+    """The slot's prompt from ``start`` on, chunk by chunk, through the
+    pool's mixed step alone (every write behind the copy-on-write
+    barrier, as ``Scheduler._mixed_tick`` does); the slot then ACTIVE on
+    its first token."""
+    req, pos = slot.req, start
+    while pos < req.prompt_len:
+        c = min(chunk, req.prompt_len - pos)
+        toks = np.zeros((pool.n_slots, chunk), np.int32)
+        poss = np.zeros(pool.n_slots, np.int32)
+        q_lens = np.zeros(pool.n_slots, np.int32)
+        toks[slot.index, :c] = req.prompt[pos:pos + c]
+        poss[slot.index], q_lens[slot.index] = pos, c
+        pool._prepare_write(slot, pos, pos + c - 1)
+        pool._ensure_pages(slot, pos + c - 1)
+        logits = pool.mixed_step(params, toks, poss, q_lens)
+        pos += c
+    slot.prefilling = False
+    slot.tok = int(torch.argmax(logits[slot.index, c - 1]))
+    slot.pos = req.prompt_len
+
+
+def _flip_ulp(pool) -> None:
+    """Flip the last bit of every bf16 value in the kernel-layout pools."""
+    for leaf in tree_leaves(pool.kcache):
+        if leaf.dtype != torch.bfloat16:
+            fail(f"the logits check expects bf16 pools, not {leaf.dtype}")
+        leaf.view(torch.int16).bitwise_xor_(1)
+
+
+def phase_verify_logits(cfg, dev, prompts, mla=False) -> None:
+    """Speculative verification and prefix sharing at full width, in
+    ``phase_decode_logits``'s style (uncompressed bf16 MLPs, the kernel
+    path, LOGIT_ULP_FACTOR times what one bf16 ulp on every cached K/V
+    moves the logits, a planted one-row page shift outside it):
+
+    * verify: four requests (prompts cut to 29, 60, 94 and 127 tokens, so
+      each block crosses a page boundary, the last onto a page allocated
+      for it) installed into two identical ``cuda_paged`` pools; five
+      known tokens a slot scored at Q=5 in one mixed step on the first,
+      and through five Q=1 steps on the second: each slot's rows within
+      its own floor, and every slot's first page shifted one row must
+      put some slot outside it;
+    * prefix: one request prefilled in 64-token chunks and registered in
+      a pool's prefix index, a second whose first 150 tokens match it
+      mapped onto those pages (the partially matched page copied on
+      write) and prefilled from there; against the same second request
+      prefilled privately on the same chunk boundaries in a pool without
+      sharing: first-decode logits within the floor."""
+    name = "serve mla" if mla else "serve"
+    engine = ServeEngine(cfg, init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), dev), device=dev,
+        compress=False)
+    params = engine.step_params()
+    engine.metrics = ServeMetrics()
+    paged = dict(backend="cuda_paged", page_size=SERVE_PAGE)
+
+    # -- verify: one Q=5 step against five Q=1 steps ----------------------
+    cuts = (29, 60, 94, 127)
+    reqs = [Request(i, np.asarray(p[:n], np.int32), SERVE_GEN)
+            for i, (p, n) in enumerate(zip(prompts[-SERVE_BATCH:], cuts))]
+    slot_len = -(-(max(cuts) + SERVE_GEN) // SLOT_LEN_QUANTUM) \
+        * SLOT_LEN_QUANTUM
+    firsts = [(r, *engine.prefill_request(params, r.prompt, slot_len))
+              for r in reqs]
+    pools = [_installed_pool(engine, params, firsts, slot_len, **paged)
+             for _ in range(2)]
+    rng = np.random.default_rng(5)
+    toks = rng.integers(0, cfg.vocab_size, (SERVE_BATCH, 5)).astype(np.int32)
+    poss = np.array([s.pos for s in pools[0].slots], np.int32)
+    five, ones = np.full(SERVE_BATCH, 5, np.int32), \
+        np.ones(SERVE_BATCH, np.int32)
+
+    for pool in pools:
+        for slot in pool.slots:
+            pool._ensure_pages(slot, slot.pos + 4)
+
+    def block(pool):
+        return pool.mixed_step(params, toks, poss, five).float()
+
+    def chain(pool):
+        rows = []
+        for i in range(5):
+            rows.append(pool.mixed_step(params, toks[:, i:i + 1], poss + i,
+                                        ones)[:, 0].float())
+        return torch.stack(rows, 1)
+
+    with torch.no_grad():
+        q5 = block(pools[0])
+        q1 = chain(pools[1])
+        _flip_ulp(pools[1])
+        ulp = chain(pools[1])
+        for slot in range(SERVE_BATCH):
+            _shift_first_page(pools[0], slot)
+        fault = block(pools[0])
+    # each slot against its own floor: an ulp can flip a token's expert
+    # choice (deepseek's router), which moves that slot's logits alone
+    floor, err, shift = ((x - q1).abs().amax(dim=(1, 2)).tolist()
+                         for x in (ulp, q5, fault))
+    tol = [LOGIT_ULP_FACTOR * f for f in floor]
+    fmt = lambda xs: "/".join(f"{x:.4e}" for x in xs)
+    print(f"{name} verify logits, uncompressed MLPs ({SERVE_BATCH} requests,"
+          f" prompts {list(cuts)}, 5 tokens a slot, each block across a "
+          f"page boundary): Q=5 in one mixed step vs five Q=1 steps, max "
+          f"abs diff a slot {fmt(err)}; one bf16 ulp on every cached K/V "
+          f"{fmt(floor)} (tolerance {LOGIT_ULP_FACTOR}x); every slot's "
+          f"first page shifted one row {fmt(shift)} (worst "
+          f"{max(e / t for e, t in zip(err, tol)):.3f}x tolerance; shift "
+          f"up to {max(x / t for x, t in zip(shift, tol)):.2f}x)")
+    if not bool(torch.isfinite(q5).all()) or not min(floor) > 0 or \
+            any(e > t for e, t in zip(err, tol)):
+        fail(f"{name}: Q=5 verify logits differ from five Q=1 steps by "
+             f"{fmt(err)} (tolerance {fmt(tol)})")
+    if not any(x > t for x, t in zip(shift, tol)):
+        fail(f"{name}: the verify check does not see a planted one-row "
+             f"shift ({fmt(shift)} within {fmt(tol)})")
+    del pools, firsts
+
+    # -- prefix: mapped pages against private ones ------------------------
+    p0 = np.asarray(prompts[-1][:200], np.int32)
+    tail = rng.integers(0, cfg.vocab_size, 30).astype(np.int32)
+    tail[0] = (int(p0[150]) + 1) % cfg.vocab_size
+    p1 = np.concatenate([p0[:150], tail])
+    slot_len = 256
+    shared = SlotPool(engine, SERVE_BATCH, slot_len, prefix_share=True,
+                      **paged)
+    s0 = shared.slots[0]
+    s0.req = Request(0, p0, SERVE_GEN)
+    shared.reserve_for(s0, s0.req)
+    with torch.no_grad():
+        _chunk_prefill(shared, params, s0, 0, SERVE_CHUNK)
+        shared.register_prefix(s0)
+        shared.retire(s0)
+        s1 = shared.slots[1]
+        s1.req = Request(1, p1, SERVE_GEN)
+        matched = shared.map_prefix(s1, s1.req, 1)
+        if matched != 150 or not shared.reserve_for(s1, s1.req):
+            fail(f"{name}: the prefix check mapped {matched} tokens, not "
+                 f"150")
+        _chunk_prefill(shared, params, s1, matched, SERVE_CHUNK)
+        private = SlotPool(engine, SERVE_BATCH, slot_len, **paged)
+        t1 = private.slots[1]
+        t1.req = Request(1, p1, SERVE_GEN)
+        private.reserve_for(t1, t1.req)
+        for lo, hi in ((0, 64), (64, 128), (128, 150)):
+            t1.req.prompt, full = p1[:hi], p1
+            _chunk_prefill(private, params, t1, lo, SERVE_CHUNK)
+            t1.req.prompt = full
+        _chunk_prefill(private, params, t1, 150, SERVE_CHUNK)
+        got = shared.decode_logits(params)[1].float()
+        want = private.decode_logits(params)[1].float()
+        _flip_ulp(private)
+        ulp = private.decode_logits(params)[1].float()
+        _shift_first_page(shared, 1)
+        fault = shared.decode_logits(params)[1].float()
+    cow = engine.metrics.prefix_cow_copies
+    floor = float((ulp - want).abs().max())
+    tol = LOGIT_ULP_FACTOR * floor
+    err, shift = float((got - want).abs().max()), \
+        float((fault - want).abs().max())
+    print(f"{name} prefix logits, uncompressed MLPs: a 180-token request "
+          f"whose first {matched} tokens map {-(-matched // SERVE_PAGE)} "
+          f"pages of a registered 200-token prompt ({cow} copy on write of "
+          f"the partly matched page) vs the same request prefilled "
+          f"privately: first-decode max abs diff {err:.4e}; one bf16 ulp "
+          f"on every cached K/V {floor:.4e} (tolerance {tol:.4e}); planted "
+          f"one-row shift of its first (shared) page {shift:.4e}")
+    if cow != 1:
+        fail(f"{name}: {cow} copies on write, expected 1")
+    if not bool(torch.isfinite(got).all()) or not 0 < floor or \
+            not err <= tol:
+        fail(f"{name}: mapped-prefix logits differ from private ones by "
+             f"{err:.4e} (tolerance {tol:.4e})")
+    if not shift > tol:
+        fail(f"{name}: the prefix check does not see a planted one-row "
+             f"shift ({shift:.4e} <= {tol:.4e})")
+
+
+def phase_attention_verify(dev) -> list:
+    """The GQA and MLA kernels on verify blocks: Q=5 ragged (q_lens 5, 3,
+    0, 5; each block across a page boundary, slot 3's last rows on a page
+    of their own), slots 1 and 3 mapping the same two physical pages, at
+    minitron's and deepseek's serving widths, against their plain
+    versions (window, softcap, codec, poisoned page 0 as in the other
+    cases); the GQA kernel's 16-, 32- and 64-row blocks as S grows
+    (S=4 Q=5, S=12 Q=9, S=20 Q=5) -> the two ``[verify]`` entries."""
+    gen = torch.Generator(device=dev).manual_seed(8)
+    pps = -(-(int(SERVE_PROMPTS.max()) + SERVE_GEN) // SERVE_PAGE)
+    q_lens, lengths = [5, 3, 0, 5], [pps * SERVE_PAGE, 130, 0, 36]
+    cfg = get_config("minitron-8b")
+    h, kh, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    for s_n, qn in ((4, 5), (12, 9), (20, 5)):
+        rows = gqa_kernel_info("bfloat16", s_n, qn, h, kh, d, d)["rows"]
+        ql = [min(qn, 1 + i % qn) if i % 7 else 0 for i in range(s_n)]
+        ln = [ql[i] + (i * 37) % (pps * SERVE_PAGE - qn) for i in range(s_n)]
+        q, k, v, table, lns, qls = _attn_inputs(
+            dev, qn, ql, ln, pps, gen, h=h, kh=kh, d=d, s_n=s_n, shared=True)
+        got = paged_mixed_attention(q, k, v, table, lns, qls,
+                                    page_size=SERVE_PAGE)
+        want = paged_mixed_attention_plain(q, k, v, table, lns, qls,
+                                           page_size=SERVE_PAGE)
+        torch.cuda.synchronize()
+        keep = torch.arange(qn, device=dev)[None] < qls[:, None]
+        err = float((got - want).abs()[keep].max())
+        print(f"paged_mixed_attention verify S={s_n} Q={qn} (ragged q_lens "
+              f"{ql}, two slots on shared pages): {rows} query rows a "
+              f"block, max abs err vs plain {err:.3e}")
+        if not err <= ATTN_TOL:
+            fail(f"verify S={s_n} Q={qn}: max abs err {err} > {ATTN_TOL}")
+    worst, timing = _arch_attention_case(dev, cfg, 5, q_lens, lengths, pps,
+                                         gen, shared=True)
+    t = timing["bf16"]
+    print(f"paged_mixed_attention[verify] (minitron widths, S=4 Q=5, q_lens "
+          f"{q_lens}, lengths {lengths}, shared pages): kernel {t['ms']:.4f}"
+          f" ms (graph {t['graph_ms']:.4f}, device {t['device_ms']:.4f}), "
+          f"plain {t['plain_ms']:.4f} ms, sdpa device "
+          f"{t['library_device_ms']:.4f} ms; bound {t['bound_ms']:.4f} ms "
+          f"({t['bound_by']}, TF32); max abs err {max(worst.values()):.3e}"
+          f" (bf16 and codec) <= {ATTN_TOL}")
+    gqa = {"name": "paged_mixed_attention[verify]", "route": "cuda",
+           "variant_of": "paged_mixed_attention",
+           "source": "src/repro_torch/csrc/paged_attention.cu",
+           "replaces": "src/repro/kernels/paged_attention.py:239",
+           "max_abs_err": max(worst.values()), **t,
+           "shape": f"S=4 Q=5 q_lens {q_lens} H={h} KH={kh} D={d} page=16 "
+                    f"bf16, slots 1 and 3 on shared pages (bound_ms at the "
+                    f"TF32 tensor-core rate; launches: the speculative "
+                    f"serve's steps at Q=5 x blocks)",
+           "codec": timing["codec"]}
+    args = _mla_inputs(dev, 5, q_lens, lengths, pps, gen)
+    q, c, q2, pe, table, ln, ql = args
+    table[3, :2] = table[1, :2]
+    err, cerr, ((ms, plain_ms, lib_ms, bms, by, fbms), ctiming) = \
+        _mla_case(*args, 5, dev)
+    kw = dict(scale=MLA_SCALE, page_size=SERVE_PAGE)
+    run = lambda: paged_mixed_attention(q, c, c, table, ln, ql, q2, pe, **kw)
+    lib = _sdpa(torch.cat([q, q2], -1), torch.cat([c, pe], -1), c, table,
+                ln, ql, scale=MLA_SCALE)
+    g_ms, d_ms, lib_d_ms = graph_ms(run), device_ms(run), device_ms(lib)
+    print(f"paged_mla_attention[verify] (deepseek widths, S=4 Q=5, same "
+          f"q_lens and shared pages): kernel {ms:.4f} ms (graph {g_ms:.4f}, "
+          f"device {d_ms:.4f}), plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} "
+          f"ms (device {lib_d_ms:.4f}); bound {bms:.4f} ms ({by}, TF32); "
+          f"max abs err {err:.3e} (fp), {cerr:.3e} (codec) <= {ATTN_TOL}")
+    mla = {"name": "paged_mla_attention[verify]", "route": "cuda",
+           "variant_of": "paged_mixed_attention",
+           "source": "src/repro_torch/csrc/paged_mla_attention.cu",
+           "replaces": "src/repro/kernels/paged_attention.py:239",
+           "max_abs_err": max(err, cerr), "ms": ms, "graph_ms": g_ms,
+           "device_ms": d_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+           "library_device_ms": lib_d_ms, "bound_ms": bms, "bound_by": by,
+           "bound_f32_ms": fbms,
+           "shape": f"S=4 Q=5 q_lens {q_lens} H={MLA_HEADS} KH=1 "
+                    f"D={MLA_LATENT} D2={MLA_ROPE} page=16 bf16, slots 1 "
+                    f"and 3 on shared pages (library_ms: SDPA of q||q2 "
+                    f"against c||pe; launches: the speculative serve's "
+                    f"steps at Q=5 x blocks)"}
+    return [gqa, mla]
 
 
 def main() -> None:
@@ -2270,6 +2846,7 @@ def main() -> None:
     # before the serve phases: late in a run the profiler has been seen to
     # drop part of this kernel's time (graph ms unchanged)
     arch_kernels = timed("attention archs", phase_attention_archs, dev)
+    kernels += timed("attention verify", phase_attention_verify, dev)
     launches, prompts, fp_warm, toks = timed("serve minitron", phase_serve,
                                              engine)
     codec_launches = timed("serve minitron codec", phase_serve_codec,
@@ -2279,17 +2856,21 @@ def main() -> None:
     timed("fused operands", phase_fused_operands, engine, dev)
     timed("serve paths", phase_serve_paths, engine, prompts, toks,
           BACKEND_PATHS)
+    prefix = timed("serve prefix spec", phase_serve_prefix_spec, engine,
+                   "serve", PREFIX_RUNS)
+    launches["paged_mixed_attention[verify]"] = _verify_launches(prefix)
     cfg = engine.cfg.scaled(binarize_mlp=False)
     del engine
     torch.cuda.empty_cache()
     timed("decode logits", phase_decode_logits, cfg, dev, prompts)
+    timed("verify logits", phase_verify_logits, cfg, dev, prompts)
     torch.cuda.empty_cache()
     kernels += timed("attention mla", phase_attention_mla, dev)
     timed("decode wrapper", phase_decode_wrapper, dev)
     launches.update(timed("serve mla", phase_serve_mla, dev))
     timed("small mla", phase_small_mla_reference, dev)
     timed("small minitron", phase_small_reference, dev,
-          tiny_config("minitron-8b"), "tiny minitron")
+          tiny_config("minitron-8b"), "tiny minitron", True)
     timed("archs", phase_archs, dev, arch_kernels, launches)
     kernels += list(arch_kernels.values())
     for arch in ARCH_LAYERS:
@@ -2298,7 +2879,7 @@ def main() -> None:
     timed("small gemma2 lanes", phase_small_reference, dev,
           tiny_config("gemma2-2b").scaled(window=16),
           "tiny gemma2-2b at window 16 (local blocks rolling lanes beside "
-          "the pools)")
+          "the pools)", True)
     params, images, comp = timed("setup reactnet", setup_reactnet, dev)
     kernels += timed("binary kernels", phase_binary_kernels, dev, comp)
     launches.update(timed("reactnet", phase_reactnet, dev, params, images,

@@ -14,8 +14,15 @@ ragged mixed step of prefill chunks and decode tokens over the page
 pools (rolling-window lanes beside them), without it each prompt is
 prefilled alone and installed into its pages.  ``--kv-codec cluster``
 keeps the pages as int8 codebook codes with per-token scales (decoded
-inside the kernel, or at gather).  It prints the same summary lines as
-the reference launcher for what it supports.
+inside the kernel, or at gather).  ``--prefix-share`` (with
+``--kv-page-size`` and ``--prefill-chunk``) maps cached prompt prefixes'
+pages into later requests' page tables and skips their chunks;
+``--shared-prefix-len`` gives every prompt a common prefix to reuse.
+``--speculate ngram`` or ``draft`` verifies up to ``--draft-k`` draft
+tokens a slot a step; ``--prompt-pattern`` tiles each prompt from a
+short pattern, the repetitive text where n-gram drafts are accepted.  It
+prints the same summary lines as the reference launcher for what it
+supports.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --scale tiny --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --scale tiny \
@@ -29,6 +36,10 @@ the reference launcher for what it supports.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x22b \
       --scale full --layers 2 --attn-backend cuda_paged \
       --prefill-chunk 64 --kv-page-size 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+      --scale tiny --arch minitron-8b --attn-backend cuda_paged \
+      --kv-page-size 16 --prefill-chunk 16 --prefix-share \
+      --shared-prefix-len 32 --speculate ngram --prompt-pattern 8
 
 At ``--scale full`` registration compresses every full-width dense MLP
 matrix on the host first (about 10 s each on the H100 machine; 64 for
@@ -184,6 +195,26 @@ def main(argv=None):
                     help="KV page-pool codec: none (fp pages) or cluster "
                          "(int8 codebook codes + per-token f32 scales, "
                          "decoded inside the paged-attention kernel)")
+    ap.add_argument("--prefix-share", action="store_true",
+                    help="keep completed prompts' KV pages in a prefix "
+                         "index; a request extending a cached prefix maps "
+                         "the shared pages and skips that prefill "
+                         "(copy-on-write guards them; needs "
+                         "--kv-page-size and --prefill-chunk)")
+    ap.add_argument("--prompt-pattern", type=int, default=0,
+                    help="tile each prompt from its own repeating pattern "
+                         "of this many tokens (0 = random prompts)")
+    ap.add_argument("--shared-prefix-len", type=int, default=0,
+                    help="give every prompt a common prefix of this many "
+                         "tokens (0 = random prompts)")
+    ap.add_argument("--speculate", default="off",
+                    help="draft proposer: 'off', 'ngram' (the slot's own "
+                         "history) or 'draft'/'draft:<arch>' (a tiny draft "
+                         "model on the engine's weight store); greedy "
+                         "verification keeps the tokens of 'off'")
+    ap.add_argument("--draft-k", type=int, default=4,
+                    help="most draft tokens a slot a step (the verify "
+                         "block is 1 + k wide)")
     ap.add_argument("--no-prefetch", action="store_true",
                     help="disable next-layer tile prefetch")
     ap.add_argument("--no-compress", action="store_true",
@@ -233,11 +264,20 @@ def main(argv=None):
                       kv_pages=args.kv_pages,
                       attn_backend=args.attn_backend,
                       kv_codec=args.kv_codec,
+                      prefix_share=args.prefix_share,
+                      speculate=args.speculate, draft_k=args.draft_k,
                       log_every=args.log_every)
     rng = np.random.default_rng(0)
+    shared_len = min(args.shared_prefix_len, args.prompt_len - 1)
+    common = rng.integers(0, cfg.vocab_size, max(shared_len, 0))
     for _ in range(n_requests):
-        sched.submit(rng.integers(0, cfg.vocab_size, args.prompt_len),
-                     args.gen)
+        tail_len = args.prompt_len - len(common)
+        if args.prompt_pattern:
+            pat = rng.integers(0, cfg.vocab_size, args.prompt_pattern)
+            tail = np.tile(pat, -(-tail_len // len(pat)))[:tail_len]
+        else:
+            tail = rng.integers(0, cfg.vocab_size, tail_len)
+        sched.submit(np.concatenate([common, tail]), args.gen)
     t0 = time.monotonic()
     completed = sched.run()
     if device.type == "cuda":
@@ -280,6 +320,15 @@ def main(argv=None):
               f"installing prefilled caches, "
               f"{m.kv_prefill_gather_bytes_avoided} avoided by "
               f"mixed-step in-pool prefill")
+    if sched.prefix_share:
+        pool = sched._pool
+        print(f"prefix share: {m.prefix_hits} hits, "
+              f"{m.prefix_tokens_reused} prompt tokens served from "
+              f"cached pages ({m.prefill_chunks_avoided} prefill chunks "
+              f"avoided), {m.prefix_cow_copies} copy-on-write page "
+              f"copies, {m.prefix_evictions} index evictions")
+        print(f"prefix index: {pool.prefix.n_nodes} cached pages "
+              f"covering {pool.prefix.tokens_cached} tokens")
     if args.kv_codec == "cluster":
         codec_report(sched._pool, m)
     if engine.compressed:
@@ -292,6 +341,12 @@ def main(argv=None):
         if engine.store.prefetch_dispatched:
             print(f"tile prefetch: {engine.store.prefetch_dispatched} "
                   f"dispatched, {engine.store.prefetch_used} consumed")
+    if m.spec_rounds:
+        total = sum(len(r.generated) for r in completed)
+        print(f"speculative ({sched.speculate}, k={sched.draft_k}): "
+              f"{m.spec_accepted_tokens}/{m.spec_draft_tokens} draft "
+              f"tokens accepted ({m.spec_acceptance_rate() * 100:.0f}%), "
+              f"{m.decode_steps / max(total, 1):.2f} verify steps/token")
     print("sample token ids:", completed[0].generated[:16])
     return completed
 

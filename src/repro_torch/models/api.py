@@ -40,6 +40,10 @@ class ModelAPI:
     mixed_step: Callable[..., Any]
     # (cfg, params, paged cache, table, tokens (S, Q), poss (S,),
     #  q_lens (S,), *, paged_flags, page_size) -> (logits (S, Q, V), cache)
+    verify_step: Callable[..., Any]
+    # (cfg, params, lane cache, tokens (B, S), pos, q_lens (B,), *,
+    #  kv_quant, per_lane) -> (full logits (B, S, V), cache); speculative
+    # verification of ragged draft blocks
 
 
 def _kinds(cfg) -> tuple:
@@ -55,11 +59,32 @@ def supports_chunked_prefill(cfg) -> bool:
     return all(k in CHUNKABLE_KINDS for k in _kinds(cfg))
 
 
+def supports_speculation(cfg) -> bool:
+    """True if ``cfg`` can decode speculatively: drafts are verified by
+    the resume-from-cache machinery chunked prefill uses, so the gate is
+    the same."""
+    return supports_chunked_prefill(cfg)
+
+
 def supports_paged_attention(cfg) -> bool:
     """True if every block keeps an attention-style cache."""
     if cfg.family == "audio":
         return False
     return all(k in PAGEABLE_KINDS for k in _kinds(cfg))
+
+
+def supports_prefix_share(cfg) -> bool:
+    """True if ``cfg`` can map shared prefix KV pages into a request's
+    page table: chunked prefill resumes, the paged backend serves it, and
+    every cache leaf pages.  Rolling-window kinds keep lane leaves that a
+    shared page cannot carry, so they are excluded by kind, as in the
+    reference."""
+    if not supports_chunked_prefill(cfg) or \
+            not supports_paged_attention(cfg):
+        return False
+    windowed = ("swa", "local", "attn_local", "swa_moe")
+    return all(k in PAGEABLE_KINDS and k not in windowed
+               for k in _kinds(cfg))
 
 
 def cache_layout(api: ModelAPI, cfg, slot_len: int):
@@ -96,4 +121,5 @@ def get_model(cfg) -> ModelAPI:
                     prefill_chunk=transformer.prefill_chunk,
                     init_cache_specs=transformer.init_cache_specs,
                     init_cache=transformer.init_cache,
-                    mixed_step=transformer.mixed_step)
+                    mixed_step=transformer.mixed_step,
+                    verify_step=transformer.verify_step)

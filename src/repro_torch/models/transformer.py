@@ -13,9 +13,10 @@ sandwich norms (``cfg.post_norms``), MLA blocks with a dense MLP or
 shared + routed experts (``"mla_dense"``, ``"mla_moe"``, the deepseek-v2
 stack), and every step function of the reference's serving and scoring
 paths: :func:`forward`/:func:`backbone` without a cache, monolithic
-:func:`prefill`, :func:`prefill_chunk` and :func:`decode_step` over lane
-caches (``kv_quant`` rounds new K/V through the codec, as the gathered
-backend does under ``kv_codec="cluster"``), and the ragged
+:func:`prefill`, :func:`prefill_chunk`, :func:`decode_step` and the
+speculative :func:`verify_step` over lane caches (``kv_quant`` rounds
+new K/V through the codec, as the gathered backend does under
+``kv_codec="cluster"``), and the ragged
 :func:`mixed_step` of the in-kernel backend over page pools, fp or int8
 code pools plus a scale-pool tree, with rolling-window lanes beside them.
 Caches are updated in place.  Other block kinds raise
@@ -309,6 +310,27 @@ def decode_step(cfg, params, cache, tokens, pos, *, kv_quant: bool = False,
     no MoE capacity."""
     x, _ = _run_stack(cfg, params, cache, _embed_step(cfg, params, tokens),
                       pos=pos, kv_quant=kv_quant, per_lane=per_lane)
+    x = rms_norm(params["final_norm"], x, cfg.norm_eps)
+    return _unembed(cfg, params, x), cache
+
+
+def verify_step(cfg, params, cache, tokens, pos, q_lens, *,
+                kv_quant: bool = False, per_lane: bool = False):
+    """Speculative verification: ``tokens`` (B, S) at absolute positions
+    ``pos``..``pos + S - 1`` (shared, or per lane ``(B,)``) against a
+    partially filled lane cache -> (full logits (B, S, V), cache updated
+    in place).
+
+    :func:`prefill_chunk` with every position's logits kept (row ``i``
+    checks draft token ``i + 1``) and a ragged block: lane ``b``
+    contributes ``q_lens[b]`` real tokens, and rows past that are padding
+    whose cache writes are dropped and whose logits are garbage; a lane
+    with ``q_lens[b] == 0`` leaves its cache as it was.  ``per_lane``
+    scores every lane as its own sequence — the reference vmaps this
+    function over slots — so lanes share no MoE capacity."""
+    x, _ = _run_stack(cfg, params, cache, _embed_step(cfg, params, tokens),
+                      pos=pos, q_lens=q_lens, kv_quant=kv_quant,
+                      per_lane=per_lane)
     x = rms_norm(params["final_norm"], x, cfg.norm_eps)
     return _unembed(cfg, params, x), cache
 

@@ -8,9 +8,12 @@ record the copies the gathered backend makes (page gather and scatter a
 decode step, the install copy of a standalone prefill) and those the
 in-kernel backend avoids (its mixed path copies nothing), the codec
 counters the resident KV bytes ``kv_codec="cluster"`` keeps out of the
-pool, and ``waves`` the wave-mode admission rounds.
-Prefix-sharing and speculation counters, and the Prometheus registry,
-come with those features in later slices.
+pool, ``waves`` the wave-mode admission rounds, the ``prefix_*`` counters
+prefix sharing (hits, reused prompt tokens, skipped chunks, copy-on-write
+copies, index evictions, the shared-page gauge) and the ``spec_*``
+counters speculative decoding (rounds, drafts proposed, accepted and
+rolled back).  The Prometheus registry comes with telemetry export in a
+later slice.
 """
 
 from __future__ import annotations
@@ -62,6 +65,22 @@ class ServeMetrics:
     #                                    KV codec kept out of the pool
     kv_codec_error_bound: float = 0.0  # worst elementwise reconstruction
     #                                    error bound seen (max scale / 254)
+    prefix_hits: int = 0               # admissions that mapped a cached
+    #                                    prefix (prefix_share only)
+    prefix_tokens_reused: int = 0      # prompt tokens served from shared
+    #                                    pages, with no prefill work
+    prefill_chunks_avoided: int = 0    # prefill chunks never executed
+    prefix_cow_copies: int = 0         # shared pages copied on write
+    prefix_evictions: int = 0          # index entries dropped under
+    #                                    reservation pressure
+    shared_pages: int = 0              # pages referenced >1x (last-step
+    shared_page_steps: int = 0         # gauge; sum over steps for mean)
+    spec_rounds: int = 0               # (speculative round x slot) pairs
+    #                                    that carried >= 1 draft token
+    spec_draft_tokens: int = 0         # draft tokens proposed to verify
+    spec_accepted_tokens: int = 0      # drafts the model's argmax agreed
+    #                                    with
+    spec_rejected_tokens: int = 0      # drafts rolled back
     _t0: float = dataclasses.field(default_factory=time.monotonic)
     ttft_hist: Histogram = dataclasses.field(default_factory=Histogram)
     tpot_hist: Histogram = dataclasses.field(default_factory=Histogram)
@@ -114,6 +133,27 @@ class ServeMetrics:
         self.kv_codec_bytes_resident += resident_bytes
         self.kv_bytes_avoided += fp_bytes - resident_bytes
 
+    def record_prefix_hit(self, tokens: int, chunks_avoided: int) -> None:
+        """One admission that mapped a cached prefix: ``tokens`` prompt
+        positions rode shared pages and ``chunks_avoided`` prefill chunks
+        were never executed."""
+        self.prefix_hits += 1
+        self.prefix_tokens_reused += tokens
+        self.prefill_chunks_avoided += chunks_avoided
+
+    def record_prefix_cow(self) -> None:
+        """One shared page copied on write."""
+        self.prefix_cow_copies += 1
+
+    def record_prefix_evictions(self, n: int) -> None:
+        """Prefix-index entries dropped under reservation pressure."""
+        self.prefix_evictions += n
+
+    def record_shared_pages(self, n: int) -> None:
+        """Shared-page occupancy gauge after one decode step."""
+        self.shared_pages = n
+        self.shared_page_steps += n
+
     def record_kv_codec_error(self, bound: float) -> None:
         """Worst-case elementwise KV reconstruction error bound of the
         resident pool (monotone max across runs)."""
@@ -133,6 +173,22 @@ class ServeMetrics:
         self.capacity_steps += n_slots
         self.decode_s += dt
         self.step_hist.record(dt)
+
+    def record_spec(self, proposed: int, accepted: int) -> None:
+        """One slot's speculative verification: ``proposed`` drafts
+        scored, ``accepted`` of them matching the model's argmax chain
+        (the rest rolled back).  No-op when nothing was proposed."""
+        if proposed <= 0:
+            return
+        self.spec_rounds += 1
+        self.spec_draft_tokens += proposed
+        self.spec_accepted_tokens += accepted
+        self.spec_rejected_tokens += proposed - accepted
+
+    def spec_acceptance_rate(self) -> float:
+        """Fraction of proposed draft tokens the verifier accepted."""
+        return self.spec_accepted_tokens / self.spec_draft_tokens \
+            if self.spec_draft_tokens else 0.0
 
     def record_completed(self, n_requests: int) -> None:
         self.requests_completed += n_requests
@@ -229,6 +285,17 @@ class ServeMetrics:
             parts.append(
                 f"kv codec {self.kv_capacity_multiplier():.2f}x "
                 f"(avoided {_fmt_bytes(self.kv_bytes_avoided)})")
+        if self.prefix_hits:
+            parts.append(
+                f"prefix {self.prefix_hits} hits "
+                f"({self.prefix_tokens_reused} toks reused, "
+                f"{self.prefill_chunks_avoided} chunks avoided, "
+                f"{self.prefix_cow_copies} cow)")
+        if self.spec_rounds:
+            parts.append(
+                f"spec {self.spec_accepted_tokens}/"
+                f"{self.spec_draft_tokens} drafts accepted "
+                f"({self.spec_acceptance_rate() * 100:.0f}%)")
         if self.ttft_hist.n:
             p50, p99 = self.ttft_hist.percentiles(50, 99)
             parts.append(f"ttft p50 {p50 * 1000:.0f}ms p99 {p99 * 1000:.0f}ms")

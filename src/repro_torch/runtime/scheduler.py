@@ -29,21 +29,35 @@ Invariants, as in the reference:
   * slot lifecycle — FREE (req is None) -> PREFILLING (chunks write into
     the slot's pages or its standalone cache) -> ACTIVE (decode advances
     ``pos``) -> FREE (retire releases pages and reservations);
-  * page ownership — a physical page is referenced by at most one slot's
-    table row; page 0 is the dummy sink that absorbs padded and free-lane
-    writes and is never read as a valid position;
+  * page ownership — pages are refcounted, and a page with more than one
+    owner (slots, the prefix index) never changes: a write to it copies it
+    first (``SlotPool._prepare_write``), and the gathered backend's
+    rewrites of shared pages carry the bytes they already hold; page 0 is
+    the dummy sink that absorbs padded and free-lane writes and is never
+    read as a valid position;
   * no mid-flight OOM — admission reserves every page the request can ever
     need; allocation during serving draws from that reservation.
 
-Not ported yet, and refused with ``NotImplementedError`` rather than
-served some other way: prefix sharing, speculative decoding and the kernel
-autotuner.
+``prefix_share=True`` keeps completed prompts' pages in a
+:class:`~repro_torch.runtime.prefix_index.PrefixIndex`: a request that
+extends a cached prefix maps those pages into its table at admission and
+starts prefilling past them.  ``speculate="ngram" | "draft"`` verifies up
+to ``draft_k`` draft tokens a slot a step: under ``cuda_paged`` in the
+mixed step itself (Q = 1 + ``draft_k`` on decode ticks; rejected writes
+to the pages are rewritten before they are read, and rolling lanes are
+snapshotted and restored), on the other layouts in two passes, a scoring
+pass on a copy of the cache and a committing pass at the accepted
+lengths.
+
+The kernel autotuner is not ported yet and is refused with
+``NotImplementedError`` rather than served some other way.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
+import warnings
 from typing import Callable
 
 import numpy as np
@@ -53,9 +67,13 @@ from repro_torch import resolve_device
 from repro_torch.kernels import kv_codec as kv_codec_mod
 from repro_torch.kernels.kv_codec import KV_CODECS
 from repro_torch.models.api import (ATTN_BACKENDS, cache_layout, get_model,
-                                    supports_paged_attention)
+                                    supports_paged_attention,
+                                    supports_prefix_share,
+                                    supports_speculation)
 from repro_torch.runtime.decode_cache import DecodeTileCache, EvictionPolicy
+from repro_torch.runtime.drafter import make_drafter
 from repro_torch.runtime.metrics import ServeMetrics
+from repro_torch.runtime.prefix_index import PrefixIndex
 from repro_torch.runtime.telemetry import NULL_TELEMETRY
 from repro_torch.runtime.weight_store import WeightStore
 from repro_torch.tree import tree_leaves, tree_map
@@ -63,6 +81,18 @@ from repro_torch.tree import tree_leaves, tree_map
 DEFAULT_BUCKETS = (16, 32, 64, 128, 256, 512, 1024, 2048)
 SLOT_LEN_QUANTUM = 16      # slot cache lengths round up to this many tokens
 DUMMY_PAGE = 0             # physical page that absorbs padded writes
+
+# capability downgrades warn once per (arch family, capability), as the
+# reference's do
+_FALLBACK_WARNED: set = set()
+
+
+def _warn_fallback(family: str, capability: str, message: str) -> None:
+    key = (family, capability)
+    if key in _FALLBACK_WARNED:
+        return
+    _FALLBACK_WARNED.add(key)
+    warnings.warn(message, RuntimeWarning, stacklevel=3)
 
 
 @dataclasses.dataclass
@@ -88,20 +118,27 @@ class Request:
 
 class PageAllocator:
     """Free-list allocator over a fixed set of physical KV page ids, with
-    admission-time reservations.
+    admission-time reservations and per-page refcounts.
 
     ``reserve(n)`` earmarks capacity; ``alloc`` hands out a page against
-    an existing reservation, so allocation during serving can never fail
-    mid-request.  Releasing a page that is not allocated raises.  (The
-    reference's per-page refcounts come with prefix sharing.)
-    """
+    an existing reservation at refcount 1, so allocation during serving
+    can never fail mid-request.  ``share`` takes one more reference on an
+    allocated page (prefix sharing: no free-list traffic, no
+    reservation), and ``release`` drops one reference a call: a page
+    returns to the free list when its last reference goes.  Releasing a
+    page that is not allocated, or sharing one, raises ``ValueError``."""
 
     def __init__(self, page_ids):
         ids = list(page_ids)
         self.total = len(ids)
         self._free = sorted(ids, reverse=True)    # pop() -> ascending ids
         self._allocated: set[int] = set()
+        self._refs: dict[int, int] = {}
         self.reserved = 0
+
+    @property
+    def n_free(self) -> int:
+        return len(self._free)
 
     @property
     def n_allocated(self) -> int:
@@ -124,21 +161,40 @@ class PageAllocator:
         self.reserved -= n
 
     def alloc(self) -> int:
-        """One page against an existing reservation."""
+        """One page against an existing reservation (refcount 1)."""
         assert self.reserved > 0, "alloc without reservation"
         assert self._free, "reservation invariant broken: no free pages"
         self.reserved -= 1
         pid = self._free.pop()
         self._allocated.add(pid)
+        self._refs[pid] = 1
         return pid
 
+    def share(self, pid: int) -> int:
+        """One more reference on an allocated page."""
+        if pid not in self._allocated:
+            raise ValueError(f"share of unallocated page {pid}")
+        self._refs[pid] += 1
+        return pid
+
+    def refcount(self, pid: int) -> int:
+        return self._refs.get(pid, 0)
+
+    def shared_pages(self) -> int:
+        """Physical pages referenced by more than one owner."""
+        return sum(1 for r in self._refs.values() if r >= 2)
+
     def release(self, page_ids) -> None:
-        """Return pages to the free list."""
+        """Drop one reference a page; a page returns to the free list when
+        its last reference goes."""
         for pid in page_ids:
             if pid not in self._allocated:
                 raise ValueError(f"double free of page {pid}")
-            self._allocated.remove(pid)
-            self._free.append(pid)
+            self._refs[pid] -= 1
+            if self._refs[pid] == 0:
+                del self._refs[pid]
+                self._allocated.remove(pid)
+                self._free.append(pid)
 
     def add_pages(self, page_ids) -> None:
         """Grow the pool (``SlotPool.grow_pages``)."""
@@ -269,6 +325,18 @@ class ServeEngine:
             return self.api.prefill_chunk(self.cfg, params, cache, toks, pos,
                                           kv_quant=kv_quant)
 
+    def _lane_views(self, pooled_cache):
+        """Views of a slot pool's leaves (S, *lane leaf) with the slot
+        axis where a lane cache's batch axis sits: writes through them
+        land in the pool."""
+        axes = iter(self._batch_axes)
+
+        def lane_view(a):
+            bax = next(axes)
+            return a.squeeze(bax + 1).movedim(0, bax)
+
+        return tree_map(lane_view, pooled_cache)
+
     def slot_decode(self, params, pooled_cache, toks, poss, *,
                     kv_quant: bool = False):
         """One decode step for every slot: ``pooled_cache`` leaves
@@ -279,13 +347,7 @@ class ServeEngine:
         slots ride one batched call with per-lane positions over views
         of the pool that put the slot axis where the batch axis sits, and
         ``per_lane`` keeps their MoE capacity apart, as the vmap does."""
-        axes = iter(self._batch_axes)
-
-        def lane_view(a):
-            bax = next(axes)
-            return a.squeeze(bax + 1).movedim(0, bax)
-
-        lanes = tree_map(lane_view, pooled_cache)
+        lanes = self._lane_views(pooled_cache)
         s_n = toks.shape[0]
         with torch.no_grad():
             logits, _ = self.api.decode_step(
@@ -293,6 +355,30 @@ class ServeEngine:
                 _on_device(np.asarray(toks).reshape(s_n, 1), self.device),
                 _on_device(poss, self.device), kv_quant=kv_quant,
                 per_lane=True)
+        return logits[:, None], pooled_cache
+
+    def verify_slots(self, params, pooled_cache, toks, poss, q_lens, *,
+                     kv_quant: bool = False):
+        """Speculative verification over slot lanes: ``pooled_cache``
+        leaves (S, *lane leaf), toks (S, 1, Q), poss (S,) start positions,
+        q_lens (S,) real token counts (0: an idle lane, left as it was)
+        host int arrays -> (full logits (S, 1, Q, V), pooled cache with
+        each lane's ``q_lens`` tokens written in place).
+
+        The reference vmaps a batch-1 ``verify_step`` over the slots; here
+        they ride one batched call with per-lane positions and ``q_lens``
+        over the same lane views :meth:`slot_decode` uses.  The reference
+        keeps its scoring pass's cache by not donating it; this call
+        always writes, so a caller that only scores passes a copy."""
+        lanes = self._lane_views(pooled_cache)
+        s_n = toks.shape[0]
+        dev = self.device
+        with torch.no_grad():
+            logits, _ = self.api.verify_step(
+                self.cfg, params, lanes,
+                _on_device(np.asarray(toks).reshape(s_n, -1), dev),
+                _on_device(poss, dev), _on_device(q_lens, dev),
+                kv_quant=kv_quant, per_lane=True)
         return logits[:, None], pooled_cache
 
     def decode_step(self, params, cache, tok, pos: int):
@@ -315,7 +401,10 @@ class Slot:
     tokens already written, into the slot's pages on the mixed path or
     into ``pcache`` (a standalone batch-1 lane cache, installed into the
     pool when the last chunk lands) on the chunk loop.  ``reserved_left``
-    is the slot's outstanding page reservation."""
+    is the slot's outstanding page reservation.  ``prefix_matched``
+    counts prompt tokens mapped from the prefix index at admission (the
+    cursor starts there); ``_prefix_nodes`` holds the mapped nodes until
+    the slot's standalone cache is seeded from them."""
 
     index: int
     req: Request | None = None
@@ -325,6 +414,8 @@ class Slot:
     prefill_cursor: int = 0
     pcache: object = None
     reserved_left: int = 0
+    prefix_matched: int = 0
+    _prefix_nodes: list | None = None
 
 
 class SlotPool:
@@ -357,7 +448,12 @@ class SlotPool:
       same ``mixed_step``.  When no leaf pages, the kernel never runs.
 
     Pages are allocated on demand as a slot's writes reach them and
-    released at retire; page 0 is the dummy sink.  ``page_capacity``
+    released at retire; page 0 is the dummy sink.  ``prefix_share=True``
+    (every leaf must page) keeps a :class:`PrefixIndex` over the
+    allocator: completed prompts' pages are registered in it, a later
+    request maps its matched prefix's pages into its table, and any write
+    to a page with more than one reference copies it first
+    (:meth:`_prepare_write`).  ``page_capacity``
     (default ``n_pages``) sizes the buffers: :meth:`grow_pages` within it
     only adds free pages.  ``page_bytes_fp`` and ``page_bytes_resident``
     give a physical page's bytes over every paged leaf without and with
@@ -366,7 +462,8 @@ class SlotPool:
     def __init__(self, engine: ServeEngine, n_slots: int, slot_len: int,
                  *, page_size: int | None = None,
                  n_pages: int | None = None, backend: str = "cuda_paged",
-                 page_capacity: int | None = None, kv_codec: str = "none"):
+                 page_capacity: int | None = None, kv_codec: str = "none",
+                 prefix_share: bool = False):
         if backend not in ATTN_BACKENDS:
             raise ValueError(f"unknown attention backend {backend!r}; "
                              f"choose from {ATTN_BACKENDS}")
@@ -385,6 +482,15 @@ class SlotPool:
         if self.codec and not self.paged:
             raise ValueError("kv_codec='cluster' compresses the page "
                              "pools; set a kv page_size")
+        if prefix_share and not self.paged:
+            raise ValueError("prefix_share maps shared KV pages; set a "
+                             "page_size")
+        self.prefix: PrefixIndex | None = None
+        # rolling lanes beside the cuda_paged pools: (leaf index, slot axis,
+        # rows W) each; speculation snapshots the rows drafts overwrite,
+        # and the fewest rows of any lane cap the draft depth
+        self._lane_info: list[tuple[int, int, int]] = []
+        self.lane_min_rows = None
         if self.paged:
             if page_size <= 0:
                 raise ValueError(f"page_size must be positive: {page_size}")
@@ -438,6 +544,14 @@ class SlotPool:
             self.page_bytes_fp += elems * spec.element_size()
             self.page_bytes_resident += elems + (elems // feat) * 4 \
                 if self.codec else elems * spec.element_size()
+        if prefix_share:
+            # a mapped prefix must carry the request's whole state
+            if not all(self.paged_flags):
+                raise ValueError(
+                    "prefix_share needs every cache leaf paged; this arch "
+                    "keeps per-slot lanes a shared page cannot carry")
+            self.prefix = PrefixIndex(self.allocator, page_size,
+                                      page_bytes=self.page_bytes_resident)
         code_dtype = (lambda s: torch.int8 if self.codec else s.dtype)
         if backend == "cuda_paged":
             self.gather_bytes_per_step = 0
@@ -467,6 +581,12 @@ class SlotPool:
             self.kscales = pools(lambda spec, ax: ((), torch.float32),
                                  lambda spec, bax: None) \
                 if self.codec else None
+            self._lane_info = [
+                (li, bax, spec.shape[bax + 1]) for li, (spec, ax, bax) in
+                enumerate(zip(leaves, self._paged_axis, self._batch_axis))
+                if ax is None]
+            self.lane_min_rows = min((w for _, _, w in self._lane_info),
+                                     default=None)
             return
         self.gather_bytes_per_step = view_bytes
         self.gather_bytes_avoided_per_step = 0
@@ -564,21 +684,207 @@ class SlotPool:
             pool[idx] = v.to(pool.dtype)
 
     def _copy_page(self, src: int, dst: int) -> None:
-        """Copy physical page ``src`` into ``dst`` across every pool (and
-        scale pool), in either backend's layout.  Nothing calls it yet: it
-        is the copy-on-write of prefix sharing, which is not ported."""
-        if self.backend == "cuda_paged":
-            pools = list(tree_leaves(self.kcache))
-            if self.codec:
-                pools += tree_leaves(self.kscales)
-            for pool, ax in zip(pools, self._paged_axis * 2):
-                if ax is None:           # a lane holds no pages
-                    continue
-                lead = (slice(None),) * (ax - 1)
-                pool[lead + (dst,)] = pool[lead + (src,)]
+        """Copy physical page ``src`` into ``dst`` across every pool and
+        scale pool, in either backend's layout: the copy of
+        :meth:`_prepare_write`.  Under the codec the scales travel with
+        the codes, so the copy decodes to the same (page, token) values."""
+        with self.engine.telemetry.timed("kv_cow"):
+            if self.backend == "cuda_paged":
+                pools = list(tree_leaves(self.kcache))
+                if self.codec:
+                    pools += tree_leaves(self.kscales)
+                for pool, ax in zip(pools, self._paged_axis * 2):
+                    if ax is None:           # a lane holds no pages
+                        continue
+                    lead = (slice(None),) * (ax - 1)
+                    pool[lead + (dst,)] = pool[lead + (src,)]
+                return
+            for pool in self.pages + self.page_scales:
+                pool[dst] = pool[src]
+
+    # -- prefix sharing -----------------------------------------------------
+    def map_prefix(self, slot: Slot, req: Request, align: int) -> int:
+        """Map the longest cached prefix of ``req``'s prompt into the
+        slot's page table (one reference a page, owned by the slot and
+        released by retire) -> matched tokens.  ``align`` is the prefill
+        chunk size: the match is floored to a chunk boundary, so the
+        suffix is computed on the sharing-off run's chunks."""
+        if self.prefix is None:
+            return 0
+        nodes, matched = self.prefix.lookup(req.prompt,
+                                            req.prompt_len - 1, align)
+        if not matched:
+            return 0
+        row = self.table[slot.index]
+        for j, node in enumerate(nodes):
+            row[j] = self.allocator.share(node.page)
+        self.prefix.hit(nodes)
+        slot.prefix_matched = matched
+        slot._prefix_nodes = nodes
+        return matched
+
+    def unmap_prefix(self, slot: Slot) -> None:
+        """Roll back :meth:`map_prefix` (the reservation failed)."""
+        if not slot.prefix_matched:
             return
-        for pool in self.pages + self.page_scales:
-            pool[dst] = pool[src]
+        row = self.table[slot.index]
+        n = -(-slot.prefix_matched // self.page_size)
+        self.allocator.release(int(row[j]) for j in range(n))
+        row[:n] = DUMMY_PAGE
+        slot.prefix_matched = 0
+        slot._prefix_nodes = None
+
+    def seed_pcache(self, slot: Slot) -> None:
+        """Write the mapped prefix's raw-fp fragments into the slot's
+        fresh standalone prefill cache at positions [0, matched): the
+        values the sharing-off chunk loop computes there (gathered chunk
+        loop only; the mixed step reads the shared pool pages in
+        place)."""
+        matched = slot.prefix_matched
+        if not matched or slot.pcache is None:
+            return
+        leaves = tree_leaves(slot.pcache)
+        P = self.page_size
+        for k, node in enumerate(slot._prefix_nodes):
+            lo, hi = k * P, min((k + 1) * P, matched)
+            if hi <= lo:
+                break
+            frags = iter(node.frag)
+            for leaf, ax in zip(leaves, self._paged_axis):
+                if ax is None:
+                    continue
+                lead = (slice(None),) * ax
+                leaf[lead + (slice(lo, hi),)] = \
+                    next(frags)[lead + (slice(0, hi - lo),)]
+
+    def register_prefix(self, slot: Slot, cache1=None) -> None:
+        """Insert a just-prefilled slot's pages into the prefix index: its
+        full prompt pages and the partial boundary page (whose first write
+        by this slot then copies it, funded by one more reservation taken
+        here).  ``cache1``: the gathered chunk loop's completed standalone
+        cache, whose raw-fp page slices the nodes keep as fragments."""
+        if self.prefix is None:
+            return
+        req = slot.req
+        L, P = req.prompt_len, self.page_size
+        row = self.table[slot.index]
+        frags = self._extract_frags(cache1, -(-L // P)) \
+            if cache1 is not None else None
+        if L % P and self.allocator.reserve(1):
+            if self.prefix.register(req.prompt, row, frags=frags,
+                                    allow_partial=True):
+                slot.reserved_left += 1
+            else:
+                self.allocator.unreserve(1)
+        else:
+            self.prefix.register(req.prompt, row, frags=frags,
+                                 allow_partial=False)
+
+    def _extract_frags(self, cache1, n_pages: int) -> list:
+        """Each paged leaf's per-page slices of a standalone batch-1 cache,
+        cloned on its device -> frags[page][leaf]."""
+        P = self.page_size
+        leaves = tree_leaves(cache1)
+        return [[leaf[(slice(None),) * ax + (slice(j * P, (j + 1) * P),)]
+                 .clone() for leaf, ax in zip(leaves, self._paged_axis)
+                 if ax is not None] for j in range(n_pages)]
+
+    def _prepare_write(self, slot: Slot, lo_pos: int, hi_pos: int) -> None:
+        """Copy-on-write barrier: before positions [lo_pos, hi_pos] of the
+        slot are written, every page backing them that has another
+        reference (the prefix index, another slot) is copied into a fresh
+        page, drawn on the slot's reservation, and swapped into its
+        table row."""
+        if self.prefix is None:
+            return
+        row = self.table[slot.index]
+        P = self.page_size
+        for j in range(lo_pos // P, hi_pos // P + 1):
+            pid = int(row[j])
+            if pid == DUMMY_PAGE or self.allocator.refcount(pid) < 2:
+                continue
+            new = self.allocator.alloc()
+            slot.reserved_left -= 1
+            assert slot.reserved_left >= 0
+            self._copy_page(pid, new)
+            row[j] = new
+            self.allocator.release([pid])
+            self.engine.metrics.record_prefix_cow()
+
+    # -- speculative decoding -----------------------------------------------
+    def _lane_rows(self, leaf: torch.Tensor, bax: int, poss, k: int):
+        """A rolling lane viewed (slots, W, ...) and the index of rows
+        (pos + 1 + i) % W, i < k, that draft tokens 0..k-1 write."""
+        l2 = leaf.movedim((bax, bax + 1), (0, 1))
+        dev = leaf.device
+        p = torch.as_tensor(np.asarray(poss), dtype=torch.long, device=dev)
+        rows = (p[:, None] + 1 + torch.arange(k, device=dev)) % l2.shape[1]
+        return l2, (torch.arange(self.n_slots, device=dev)[:, None], rows)
+
+    def spec_snapshot(self, poss, k: int):
+        """Copies of the rolling-lane rows draft tokens will overwrite
+        this step (``cuda_paged``; None without lanes)."""
+        if not self._lane_info:
+            return None
+        leaves = tree_leaves(self.kcache)
+        out = []
+        for li, bax, _ in self._lane_info:
+            l2, idx = self._lane_rows(leaves[li], bax, poss, k)
+            out.append(l2[idx])
+        return out
+
+    def spec_restore(self, snaps, poss, keep) -> None:
+        """Undo rejected drafts' rolling-lane writes: ``keep`` (S, k)
+        marks the rows to put back.  Paged leaves need none of this: a
+        position past the accepted ones is written again before any query
+        can attend it."""
+        keep = np.asarray(keep)
+        if snaps is None or not keep.any():
+            return
+        leaves = tree_leaves(self.kcache)
+        for (li, bax, _), snap in zip(self._lane_info, snaps):
+            l2, idx = self._lane_rows(leaves[li], bax, poss, keep.shape[1])
+            m = torch.from_numpy(keep).to(snap.device).reshape(
+                *keep.shape, *(1,) * (snap.ndim - 2))
+            l2[idx] = torch.where(m, snap, l2[idx])
+
+    def spec_score(self, params, toks, poss, q_lens):
+        """Speculative phase 1 on the gathered and monolithic layouts:
+        score the ragged draft blocks on a copy of the slots' lanes, so
+        the resident cache is left as it was -> (logits (S, 1, Q, V), the
+        commit context).  The blocks write as they attend, and a rejected
+        draft's K/V left in a lane would corrupt it (a rolling row holds
+        an earlier position)."""
+        assert self.backend != "cuda_paged"
+        if self.paged:
+            tel = self.engine.telemetry
+            table = torch.from_numpy(self.table.astype(np.int64)).to(
+                self.engine.device)
+            with tel.timed("kv_decode" if self.codec else "kv_gather"):
+                views = self._gather(table)
+            logits, _ = self.engine.verify_slots(
+                params, tree_map(torch.clone, views), toks, poss, q_lens,
+                kv_quant=self.codec)
+            return logits, (views, table)
+        logits, _ = self.engine.verify_slots(
+            params, tree_map(torch.clone, self.cache), toks, poss, q_lens)
+        return logits, None
+
+    def spec_commit(self, params, toks, poss, commit_lens, ctx) -> None:
+        """Speculative phase 2: run the blocks again at the accepted
+        lengths on the resident lanes (the gathered views, scattered back
+        after), so exactly the accepted tokens' K/V lands."""
+        assert self.backend != "cuda_paged"
+        if self.paged:
+            views, table = ctx
+            self.engine.verify_slots(params, views, toks, poss, commit_lens,
+                                     kv_quant=self.codec)
+            with self.engine.telemetry.timed(
+                    "kv_encode" if self.codec else "kv_scatter"):
+                self._scatter(views, table)
+        else:
+            self.engine.verify_slots(params, self.cache, toks, poss,
+                                     commit_lens)
 
     # -- page bookkeeping ---------------------------------------------------
     def pages_needed(self, cache_len: int) -> int:
@@ -651,13 +957,24 @@ class SlotPool:
 
     # -- admission / install / retire ---------------------------------------
     def reserve_for(self, slot: Slot, req: Request) -> bool:
-        """Reserve every page ``req`` can need; False -> defer admission."""
+        """Reserve every page ``req`` can need; False -> defer admission.
+        A mapped prefix discounts its fully covered pages (a partially
+        matched boundary page is written, so copied, and costs a page like
+        any other).  Under pressure the prefix index evicts cold entries
+        before admission is deferred."""
         if not self.paged:
             return True
         need = self.pages_needed(
-            self.engine.cache_len(req.prompt_len, req.max_new_tokens))
+            self.engine.cache_len(req.prompt_len, req.max_new_tokens)) \
+            - slot.prefix_matched // self.page_size
         if not self.allocator.reserve(need):
-            return False
+            if self.prefix is None:
+                return False
+            evicted = self.prefix.evict_until(need)
+            if evicted:
+                self.engine.metrics.record_prefix_evictions(evicted)
+            if not self.allocator.reserve(need):
+                return False
         slot.reserved_left = need
         return True
 
@@ -667,6 +984,13 @@ class SlotPool:
         first token ``tok``; counted as prefill-path copied bytes."""
         end = self.engine.pos_offset(slot.req.prompt_len)
         if self.paged:
+            # install rewrites the whole row; positions < prefix_matched
+            # carry the bytes the shared pages already hold (the cache was
+            # seeded from the prefix's fragments, and the codec encodes
+            # each token alone), so only the partially matched boundary
+            # page needs the copy-on-write barrier
+            self._prepare_write(slot, slot.prefix_matched,
+                                max(end - 1, slot.prefix_matched))
             self._ensure_pages(slot, max(end - 1, 0))
             row = torch.from_numpy(self.table[slot.index].astype(
                 np.int64)).to(self.engine.device)
@@ -695,6 +1019,8 @@ class SlotPool:
         slot.reserved_left = 0
         slot.prefilling = False
         slot.pcache = None
+        slot.prefix_matched = 0
+        slot._prefix_nodes = None
         slot.req = None
 
     def codec_error_bound(self) -> float:
@@ -747,13 +1073,22 @@ class SlotPool:
             poss[s.index] = s.pos
             q_lens[s.index] = 1
             if self.paged:
+                # a registered request's boundary page is shared with the
+                # prefix index: the append lands on a private copy
+                self._prepare_write(s, s.pos, s.pos)
                 self._ensure_pages(s, s.pos)   # page for this step's write
         if self.backend == "cuda_paged":
             return self.mixed_step(params, toks[:, :, 0], poss,
                                    q_lens)[:, -1]
         if self.paged:
             tel = self.engine.telemetry
-            table = torch.from_numpy(self.table.astype(np.int64)).to(
+            # only active slots' rows: every lane decodes, and a
+            # prefilling slot's lane (its token 0 written at position 0)
+            # scattered back into the prefix pages it maps would overwrite
+            # a shared page's first row.  The reference scatters it and
+            # loses that row of the prefix (ROADMAP, reference caveats).
+            rows = np.where(q_lens[:, None] > 0, self.table, DUMMY_PAGE)
+            table = torch.from_numpy(rows.astype(np.int64)).to(
                 self.engine.device)
             with tel.timed("kv_decode" if self.codec else "kv_gather"):
                 views = self._gather(table)
@@ -800,7 +1135,15 @@ class Scheduler:
     the same budget), installed into the pool, and decoded one step for
     every slot at a time.  ``kv_page_size=N`` backs the KV with N-token
     pages (``kv_pages`` sets the pool size, default fully backing every
-    slot); ``None`` keeps monolithic lanes (gathered backend only)."""
+    slot); ``None`` keeps monolithic lanes (gathered backend only).
+
+    ``prefix_share=True`` (needs ``kv_page_size`` and ``prefill_chunk``)
+    maps cached prefix pages into each admitted request's table and skips
+    their chunks; an arch with rolling-window lanes downgrades to private
+    pages with a warning and a note, as in the reference.
+    ``speculate="ngram"``, ``"draft"`` or ``"draft:<arch>"`` verifies up
+    to ``draft_k`` drafts a slot a step, token-identical to plain greedy
+    decoding."""
 
     def __init__(self, engine: ServeEngine, *, batch_size: int = 4,
                  buckets: tuple[int, ...] = DEFAULT_BUCKETS,
@@ -813,10 +1156,12 @@ class Scheduler:
                  kv_codec: str = "none",
                  prefix_share: bool = False,
                  kernel_tune: str | None = None,
-                 speculate: str = "off",
+                 speculate: str = "off", draft_k: int = 4,
                  log_every: int = 0, emit: Callable[[str], None] = print):
         if mode not in ("continuous", "wave"):
             raise ValueError(f"unknown scheduling mode {mode!r}")
+        if draft_k < 1:
+            raise ValueError(f"draft_k must be >= 1: {draft_k}")
         if prefill_chunk is not None and prefill_chunk <= 0:
             raise ValueError(f"prefill_chunk must be positive: "
                              f"{prefill_chunk}")
@@ -832,10 +1177,14 @@ class Scheduler:
         if kv_codec == "cluster" and kv_page_size is None:
             raise ValueError("kv_codec='cluster' compresses the page "
                              "pools; set kv_page_size")
+        if prefix_share and kv_page_size is None:
+            raise ValueError("prefix_share maps shared KV pages; set "
+                             "kv_page_size")
+        if prefix_share and prefill_chunk is None:
+            raise ValueError("prefix_share skips prefill chunk by chunk; "
+                             "set prefill_chunk")
         refused = [
-            (prefix_share, "prefix_share"),
             ((kernel_tune or "off") != "off", f"kernel_tune={kernel_tune!r}"),
-            ((speculate or "off") != "off", f"speculate={speculate!r}"),
             (not engine.supports_paged_attention,
              "archs without paged attention"),
         ]
@@ -854,11 +1203,36 @@ class Scheduler:
         self.kv_pages = kv_pages
         self.attn_backend = attn_backend
         self.kv_codec = kv_codec
+        self.prefix_share = prefix_share
+        self.speculate = speculate or "off"
+        self.draft_k = int(draft_k)
+        self.drafter = None
         self.log_every = log_every
         self.emit = emit
         self._queue: list[Request] = []
         self._pool: SlotPool | None = None
         self._next_rid = 0
+        family = engine.cfg.family
+        if self.speculate != "off" and not supports_speculation(engine.cfg):
+            self.speculate = "off"
+            _warn_fallback(
+                family, "speculation",
+                f"{family} arch downgraded to plain decoding: "
+                f"supports_speculation=False (draft verification rides "
+                f"the resume-from-cache machinery this arch lacks)")
+            emit(f"note: {family} arch cannot verify draft tokens "
+                 "mid-cache; speculative decoding off")
+        if self.speculate != "off":
+            self.drafter = make_drafter(self.speculate, engine)
+        if self.prefix_share and not supports_prefix_share(engine.cfg):
+            self.prefix_share = False
+            _warn_fallback(
+                family, "prefix_share",
+                f"{family} arch downgraded to unshared KV pages: "
+                f"supports_prefix_share=False (prefix sharing needs "
+                f"chunked prefill and every cache leaf paged)")
+            emit(f"note: {family} arch cannot map shared prefix pages; "
+                 "serving each request's KV privately")
 
     # -- admission ---------------------------------------------------------
     def submit(self, prompt, max_new_tokens: int) -> Request:
@@ -908,7 +1282,8 @@ class Scheduler:
                                   page_size=self.kv_page_size,
                                   n_pages=self.kv_pages,
                                   backend=self.attn_backend,
-                                  kv_codec=self.kv_codec)
+                                  kv_codec=self.kv_codec,
+                                  prefix_share=self.prefix_share)
         return self._pool
 
     # -- serving -----------------------------------------------------------
@@ -930,9 +1305,17 @@ class Scheduler:
             if pool.prefilling():
                 with tel.timed("prefill"):
                     self._prefill_tick(pool, completed)
-            if pool.active():
+            if not pool.active():
+                continue
+            if self.drafter is None:
                 with tel.timed("decode"):
                     self._step(pool, completed)
+            elif pool.backend == "cuda_paged":
+                # the mixed step verifies drafts with no chunk in flight
+                with tel.timed("mixed_step"):
+                    self._mixed_tick(pool, completed)
+            else:
+                self._spec_step(pool, completed)
         if pool.codec:
             self.engine.metrics.record_kv_codec_error(
                 pool.codec_error_bound())
@@ -964,9 +1347,16 @@ class Scheduler:
         req.t_admit = time.monotonic()
         if self.prefill_chunk is not None:
             slot.prefilling = True
-            slot.prefill_cursor = 0
+            # a mapped prefix starts the cursor past it: those prompt
+            # tokens cost no prefill work
+            slot.prefill_cursor = slot.prefix_matched
             slot.pcache = None if self._mixed_path(pool) else \
                 self.engine.fresh_slot_cache(pool.slot_len)
+            if slot.prefix_matched:
+                pool.seed_pcache(slot)
+                self.engine.metrics.record_prefix_hit(
+                    slot.prefix_matched,
+                    slot.prefix_matched // self.prefill_chunk)
             return
         t0 = time.monotonic()
         tok, cache1 = self.engine.prefill_request(params, req.prompt,
@@ -1005,7 +1395,17 @@ class Scheduler:
                     return
                 req = self._queue[0]
             slot = pool.free()[0] if pool.free() else None
-            if slot is None or not pool.reserve_for(slot, req):
+            ok = False
+            if slot is not None:
+                matched = pool.map_prefix(slot, req,
+                                          self.prefill_chunk or 1)
+                ok = pool.reserve_for(slot, req)
+                if not ok and matched:
+                    # the hit's remaining pages cannot be reserved: roll
+                    # it back, the request may still fit unshared
+                    pool.unmap_prefix(slot)
+                    ok = pool.reserve_for(slot, req)
+            if not ok:
                 if slot is not None and not pool.busy():
                     # idle pool that still can't reserve: no retire will
                     # ever free pages, so deferring would spin forever
@@ -1062,7 +1462,11 @@ class Scheduler:
                             "non-finite prefill logits (compressed "
                             "reconstruction or model numerics are broken)")
                     nxt = int(torch.argmax(last))
-                    pool.install(slot, slot.pcache, nxt)
+                    # install leaves the standalone cache as it is; the
+                    # prefix index keeps its raw-fp pages as fragments
+                    cache1 = slot.pcache
+                    pool.install(slot, cache1, nxt)
+                    pool.register_prefix(slot, cache1)
                     self._record_first_token(req, nxt)
                     m.record_admit(1, 0.0, tokens=1)
                     self._maybe_finish(pool, slot, completed)
@@ -1073,6 +1477,8 @@ class Scheduler:
         m = self.engine.metrics
         m.record_pages(pool.pages_in_use(),
                        pool.allocator.total if pool.paged else 0)
+        if pool.prefix is not None:
+            m.record_shared_pages(pool.allocator.shared_pages())
         m.record_kv_gather(pool.gather_bytes_per_step,
                            pool.gather_bytes_avoided_per_step)
         if pool.codec:
@@ -1101,12 +1507,21 @@ class Scheduler:
     def _mixed_tick(self, pool: SlotPool,
                     completed: list[Request]) -> None:
         """One iteration: every active slot contributes its decode token
-        and every prefilling slot up to one prompt chunk (the total capped
-        by ``prefill_budget``, at least one chunk), all through one ragged
-        ``mixed_step`` over the page pools.  Blocks are padded to one width
-        — ``prefill_chunk`` while chunks are in flight, 1 for pure decode —
-        so the step sees two shapes only."""
+        (and its drafts) and every prefilling slot up to one prompt chunk
+        (the chunks capped by ``prefill_budget``, at least one), all
+        through one ragged ``mixed_step`` over the page pools.  Blocks are
+        padded to one width — ``prefill_chunk`` while chunks are in flight
+        (drafts clamped into it), ``1 + draft_k`` on a decode tick with
+        drafts, 1 for plain decode — so the step sees few shapes.
+
+        Every position a slot writes goes through the copy-on-write
+        barrier first.  A rejected draft's K/V stays in the pages past the
+        slot's new position, where the next write lands before any query
+        can attend it; rolling lanes have no such slack, so their rows
+        under the drafts are snapshotted before the step and the rejected
+        ones restored after it."""
         m = self.engine.metrics
+        tel = self.engine.telemetry
         active = pool.active()
         chunks: list[tuple[Slot, int]] = []
         spent = 0
@@ -1119,58 +1534,105 @@ class Scheduler:
             spent += c
         if not active and not chunks:
             return
+        drafts: dict[int, np.ndarray] = {}
+        if self.drafter is not None and active:
+            # the lane snapshot's depth caps how deep a draft may write
+            cap = None if pool.lane_min_rows is None \
+                else pool.lane_min_rows - 1
+            with tel.timed("spec_draft"):
+                drafts = self._propose_drafts(pool, active, cap=cap)
         width = min(self.prefill_chunk, pool.slot_len) if chunks else 1
+        if chunks:
+            drafts = {i: d[:width - 1] for i, d in drafts.items()}
+        drafts = {i: d for i, d in drafts.items() if len(d)}
+        if drafts and not chunks:
+            width = 1 + self.draft_k
         toks = np.zeros((pool.n_slots, width), np.int32)
         poss = np.zeros(pool.n_slots, np.int32)
         q_lens = np.zeros(pool.n_slots, np.int32)
         for slot in active:
+            d = drafts.get(slot.index, ())
             toks[slot.index, 0] = slot.tok
+            toks[slot.index, 1:1 + len(d)] = d
             poss[slot.index] = slot.pos
-            q_lens[slot.index] = 1
-            pool._ensure_pages(slot, slot.pos)
+            q_lens[slot.index] = 1 + len(d)
+            pool._prepare_write(slot, slot.pos, slot.pos + len(d))
+            pool._ensure_pages(slot, slot.pos + len(d))
         for slot, c in chunks:
             cur = slot.prefill_cursor
             toks[slot.index, :c] = slot.req.prompt[cur:cur + c]
             poss[slot.index] = cur
             q_lens[slot.index] = c
+            # chunk K/V lands in the pool in place: shared pages under the
+            # write range are copied first
+            pool._prepare_write(slot, cur, cur + c - 1)
             pool._ensure_pages(slot, cur + c - 1)
         t0 = time.monotonic()
         params = self.engine.step_params()
+        snaps = kk = None
+        if drafts and pool.lane_min_rows is not None:
+            kk = max(len(d) for d in drafts.values())
+            snaps = pool.spec_snapshot(poss, kk)
         logits = pool.mixed_step(params, toks, poss, q_lens)
-        # one host transfer per step: each slot's next token and whether
-        # its last real row is finite
-        rows = torch.from_numpy(np.maximum(q_lens - 1, 0).astype(np.int64))
-        last = logits[torch.arange(pool.n_slots), rows.to(logits.device)]
-        nxt = torch.argmax(last, dim=-1).cpu().numpy().astype(np.int32)
-        finite = torch.isfinite(last).all(dim=-1).cpu().numpy()
+        # one host transfer a step: the argmax of each row a slot needs
+        # (a decode slot's rows 0..drafts, a chunk's last row)
+        n_rows = 1 + max((len(d) for d in drafts.values()), default=0)
+        last = np.maximum(q_lens - 1, 0)[:, None]
+        idx = np.minimum(np.arange(n_rows)[None], last)
+        for slot, _ in chunks:
+            idx[slot.index] = last[slot.index]
+        sel = logits[torch.arange(pool.n_slots, device=logits.device)[:, None],
+                     torch.from_numpy(idx).to(logits.device)]
+        g = torch.argmax(sel, dim=-1).cpu().numpy()             # (S, R)
+        ok_rows = torch.isfinite(sel).all(dim=-1).cpu().numpy()
         dt = time.monotonic() - t0
         # wall time attributed to decode vs prefill by token share
         n_chunk_toks = sum(c for _, c in chunks)
-        total = len(active) + n_chunk_toks
-        dt_decode = dt * len(active) / total if total else 0.0
+        n_dec_toks = int(sum(q_lens[s.index] for s in active))
+        total = n_dec_toks + n_chunk_toks
+        dt_decode = dt * n_dec_toks / total if total else 0.0
+        emitted = 0
+        acc: dict[int, int] = {}
         for slot in active:
-            if not finite[slot.index]:
+            d = drafts.get(slot.index, ())
+            a = 0
+            while a < len(d) and int(d[a]) == int(g[slot.index, a]):
+                a += 1
+            acc[slot.index] = a
+            if not ok_rows[slot.index, :a + 1].all():
                 raise RuntimeError(
                     f"non-finite logits in mixed step for request "
                     f"{slot.req.rid} (compressed reconstruction or model "
                     f"numerics are broken)")
-            slot.req.generated.append(int(nxt[slot.index]))
-            slot.pos += 1
-            slot.tok = int(nxt[slot.index])
+            slot.req.generated.extend(int(t) for t in g[slot.index, :a + 1])
+            emitted += a + 1
+            slot.pos += a + 1
+            slot.tok = int(g[slot.index, a])
+            m.record_spec(len(d), a)
             self._maybe_finish(pool, slot, completed)
+        if snaps is not None:
+            with tel.timed("spec_rollback"):
+                keep = np.zeros((pool.n_slots, kk), bool)
+                for i, d in drafts.items():
+                    keep[i, acc[i]:len(d)] = True
+                pool.spec_restore(snaps, poss, keep)
         for slot, c in chunks:
             m.record_prefill_chunk(c, (dt - dt_decode) / len(chunks),
                                    stalled=bool(active))
             slot.prefill_cursor += c
             if slot.prefill_cursor >= slot.req.prompt_len:
-                if not finite[slot.index]:
+                if not ok_rows[slot.index, 0]:
                     raise RuntimeError(
                         "non-finite prefill logits (compressed "
                         "reconstruction or model numerics are broken)")
                 req = slot.req
                 slot.prefilling = False
-                slot.tok = int(nxt[slot.index])
+                slot.tok = int(g[slot.index, 0])
                 slot.pos = self.engine.pos_offset(req.prompt_len)
+                # the index shares the kernel-written pages in place; the
+                # codec encodes each (page, token) alone, so a later hit
+                # reads what the sharing-off run computes
+                pool.register_prefix(slot)
                 self._record_first_token(req, slot.tok)
                 m.record_admit(1, 0.0, tokens=1)
                 # the install copy a standalone-cache prefill makes at its
@@ -1178,6 +1640,94 @@ class Scheduler:
                 m.record_prefill_gather(0, pool.install_bytes)
                 self._maybe_finish(pool, slot, completed)
         if active:
-            m.record_decode_step(len(active), dt_decode,
-                                 n_slots=pool.n_slots)
+            m.record_decode_step(emitted, dt_decode, n_slots=pool.n_slots)
             self._record_step(pool)
+
+    def _propose_drafts(self, pool: SlotPool, active: list[Slot],
+                        cap: int | None = None) -> dict[int, np.ndarray]:
+        """Up to ``draft_k`` drafts an active slot -> {slot.index: draft
+        tokens}, each kept inside the request's token budget (the verified
+        bonus token always fits) and the slot's cache; ``cap`` is a
+        backend bound (the rolling-lane snapshot depth)."""
+        hists = [np.concatenate([np.asarray(s.req.prompt, np.int64),
+                                 np.asarray(s.req.generated, np.int64)])
+                 for s in active]
+        limits = []
+        for s in active:
+            lim = s.req.max_new_tokens - len(s.req.generated) - 1
+            lim = min(lim, pool.slot_len - 1 - s.pos)
+            if cap is not None:
+                lim = min(lim, cap)
+            limits.append(max(lim, 0))
+        drafts = self.drafter.propose(hists, self.draft_k, limits=limits)
+        return {s.index: np.asarray(d, np.int64)
+                for s, d in zip(active, drafts)}
+
+    def _spec_step(self, pool: SlotPool, completed: list[Request]) -> None:
+        """One speculative round on the gathered and monolithic layouts:
+        drafts -> one ragged scoring pass over every slot's lanes on a copy
+        (phase 1) -> greedy accept on the host -> one pass at the accepted
+        lengths on the resident lanes (phase 2).  Rejected drafts never
+        reach the resident cache; greedy acceptance emits the argmax chain
+        plain decoding would.  Two passes rather than one: MoE capacity is
+        per row of the block, so a pass over ``1 + a`` tokens can drop
+        other tokens than the scoring pass over all of them."""
+        m = self.engine.metrics
+        tel = self.engine.telemetry
+        active = pool.active()
+        t0 = time.monotonic()
+        with tel.timed("spec_draft"):
+            drafts = self._propose_drafts(pool, active)
+        if not any(len(d) for d in drafts.values()):
+            # nothing proposed: a plain decode step is cheaper than a
+            # two-pass round at Q = 1
+            with tel.timed("decode"):
+                self._step(pool, completed)
+            return
+        qn = 1 + self.draft_k
+        toks = np.zeros((pool.n_slots, 1, qn), np.int32)
+        poss = np.zeros(pool.n_slots, np.int32)
+        q_lens = np.zeros(pool.n_slots, np.int32)
+        for s in active:
+            d = drafts[s.index]
+            toks[s.index, 0, 0] = s.tok
+            toks[s.index, 0, 1:1 + len(d)] = d
+            poss[s.index] = s.pos
+            q_lens[s.index] = 1 + len(d)
+            if pool.paged:
+                # the real token and every draft write [pos, pos + d]
+                pool._prepare_write(s, s.pos, s.pos + len(d))
+                pool._ensure_pages(s, s.pos + len(d))
+        params = self.engine.step_params()
+        with tel.timed("spec_verify"):
+            logits, ctx = pool.spec_score(params, toks, poss, q_lens)
+            g = torch.argmax(logits[:, 0], dim=-1).cpu().numpy()    # (S, Q)
+            finite = torch.isfinite(logits[:, 0]).all(dim=-1).cpu().numpy()
+        accepted: dict[int, int] = {}
+        commit_lens = np.zeros(pool.n_slots, np.int32)
+        for s in active:
+            d = drafts[s.index]
+            a = 0
+            while a < len(d) and int(d[a]) == int(g[s.index, a]):
+                a += 1
+            accepted[s.index] = a
+            commit_lens[s.index] = 1 + a
+        with tel.timed("spec_rollback"):
+            pool.spec_commit(params, toks, poss, commit_lens, ctx)
+        dt = time.monotonic() - t0
+        emitted = 0
+        for s in active:
+            a = accepted[s.index]
+            if not finite[s.index, :a + 1].all():
+                raise RuntimeError(
+                    f"non-finite logits in speculative step for request "
+                    f"{s.req.rid} (compressed reconstruction or model "
+                    f"numerics are broken)")
+            s.req.generated.extend(int(t) for t in g[s.index, :a + 1])
+            emitted += a + 1
+            s.pos += a + 1
+            s.tok = int(g[s.index, a])
+            m.record_spec(len(drafts[s.index]), a)
+            self._maybe_finish(pool, s, completed)
+        m.record_decode_step(emitted, dt, n_slots=pool.n_slots)
+        self._record_step(pool)

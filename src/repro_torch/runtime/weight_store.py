@@ -306,6 +306,9 @@ class WeightStore:
         return entry.fused_memo[mkey]
 
     # -- introspection -----------------------------------------------------
+    def models(self) -> list[str]:
+        return list(self._models)
+
     def layers(self, model_id: str) -> dict[str, list[StoredLayer]]:
         return self._models[model_id].layers
 

@@ -233,6 +233,89 @@ def test_lane_paths_serve_the_cpu_tokens(dev):
         assert out[0] == out[1], kw
 
 
+@pytest.mark.parametrize("mla", [False, True])
+def test_verify_blocks_over_shared_pages(dev, mla):
+    """Speculative verify blocks: Q=5 ragged, each block across a page
+    boundary, slots 1 and 3 mapping the same physical pages (a shared
+    prefix), GQA or MLA; the kernel within the plain version's tolerance
+    and unmoved by the sink poisoned."""
+    rng = np.random.default_rng(7)
+    s_n, qn, page, pps, d = 4, 5, 4, 6, 32
+    h, kh = (8, 1) if mla else (8, 2)
+    lengths = np.array([10, 7, 0, 23], np.int32)
+    q_lens = np.array([5, 3, 0, 5], np.int32)
+    table = np.zeros((s_n, pps), np.int32)
+    ids = iter(rng.permutation(np.arange(1, s_n * pps + 1)))
+    for s, ln in enumerate(lengths):
+        for j in range(-(-int(ln) // page)):
+            table[s, j] = next(ids)
+    table[3, :2] = table[1, :2]
+    t = lambda a: torch.from_numpy(np.asarray(a)).to(dev)
+    k = t(rng.standard_normal((s_n * pps + 1, page, kh, d))
+          .astype(np.float32)).to(torch.bfloat16)
+    v = k if mla else t(rng.standard_normal(k.shape).astype(np.float32)) \
+        .to(torch.bfloat16)
+    q = t(rng.standard_normal((s_n, qn, h, d)).astype(np.float32) * 0.2)
+    kw = dict(page_size=page)
+    args = (q, k, v, t(table), t(lengths), t(q_lens))
+    if mla:
+        kw.update(k2_pages=t(rng.standard_normal((*k.shape[:3], 16))
+                             .astype(np.float32)).to(torch.bfloat16),
+                  scale=0.2)
+        q2 = t(rng.standard_normal((s_n, qn, h, 16)).astype(np.float32))
+        got = paged_mixed_attention(*args, q2, **kw)
+        want = paged_mixed_attention_plain(*args, q2=q2, **kw)
+    else:
+        got = paged_mixed_attention(*args, **kw)
+        want = paged_mixed_attention_plain(*args, **kw)
+    k[0] = 3e4
+    poisoned = paged_mixed_attention(*args, q2, **kw) if mla else \
+        paged_mixed_attention(*args, **kw)
+    torch.cuda.synchronize()
+    rows = torch.arange(qn, device=dev)[None] < t(q_lens)[:, None]
+    torch.testing.assert_close(got[rows], want[rows], atol=2e-5, rtol=1e-4)
+    assert torch.equal(got, poisoned)
+
+
+def test_prefix_and_speculation_serve_the_cpu_tokens(dev):
+    """A small f32 model with +-1 MLP weights, prompts sharing a prefix
+    and prompts repeating a pattern, served with prefix sharing and n-gram
+    speculation on both backends: the card's tokens and counters are the
+    CPU's."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.transformer import init_params
+    from repro_torch.runtime import Scheduler, ServeEngine
+    from repro_torch.tree import tree_map_with_path
+    cfg = get_config("minitron-8b").scaled(
+        num_layers=2, scan_repeats=2, d_model=64, num_heads=4,
+        num_kv_heads=2, head_dim=16, d_ff=128, vocab_size=128,
+        dtype="float32")
+    params = tree_map_with_path(
+        lambda path, w: torch.where(w >= 0, 1.0, -1.0)
+        if "mlp" in path.split("/") else w,
+        init_params(cfg, torch.Generator().manual_seed(1), "cpu"))
+    rng = np.random.default_rng(2)
+    common = rng.integers(0, 128, 13)
+    reqs = [(np.concatenate([common, rng.integers(0, 128, n)]), g)
+            for n, g in ((3, 6), (5, 9), (2, 4))]
+    reqs += [(np.tile(rng.integers(0, 128, 3), 4), 12) for _ in range(2)]
+    engines = {d: ServeEngine(cfg, params, device=d) for d in ("cpu", dev)}
+    for backend in ("gathered", "cuda_paged"):
+        kw = dict(attn_backend=backend, kv_page_size=4, prefill_chunk=4,
+                  prefix_share=True, speculate="ngram", draft_k=3)
+        out = []
+        for engine in engines.values():
+            sched = Scheduler(engine, batch_size=2, **kw)
+            for r in reqs:
+                sched.submit(*r)
+            toks = {r.rid: r.generated for r in sched.run()}
+            m = engine.metrics
+            out.append((toks, m.prefix_hits, m.prefix_cow_copies,
+                        m.spec_draft_tokens, m.spec_accepted_tokens))
+        assert out[0] == out[1], backend
+        assert out[0][1] > 0 and out[0][3] > 0
+
+
 def _codec_pools(dev, seed, d=128):
     """``_paged``'s block over int8 codec pools: (q, codes, scales,
     codebook, decoded f32 pools, table, lengths, q_lens, logical)."""

@@ -93,6 +93,7 @@ _PORT_MODULES = {
     "repro_torch.runtime.metrics", "repro_torch.launch.serve",
     "repro_torch.configs.phi3_medium_14b", "repro_torch.configs.h2o_danube_1_8b",
     "repro_torch.configs.gemma2_2b", "repro_torch.configs.mixtral_8x22b",
+    "repro_torch.runtime.prefix_index", "repro_torch.runtime.drafter",
 }
 
 
@@ -106,5 +107,5 @@ def test_port_imports_neither_jax_nor_repro():
                          timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
     names, bad = out.stdout.split("|")
-    assert _PORT_MODULES <= set(names.split()) and len(names.split()) >= 39
+    assert _PORT_MODULES <= set(names.split()) and len(names.split()) >= 41
     assert bad.strip() == "[]", out.stdout

@@ -225,10 +225,18 @@ def test_mixed_path_copies_no_kv_and_leaks_no_pages(engines):
     dict(prefix_share=True),
     dict(speculate="ngram"), dict(kernel_tune="auto")])
 def test_unported_flags_are_refused(engines, kw):
+    """The kernel autotuner is still refused; prefix sharing and
+    speculation are ported (their parity tests: test_torch_prefix_share.py,
+    test_torch_speculative.py) and build a scheduler that serves them."""
     args = dict(kv_page_size=4, prefill_chunk=3, attn_backend="cuda_paged")
     args.update(kw)
-    with pytest.raises(NotImplementedError):
-        Scheduler(engines[0], **args)
+    if "kernel_tune" in kw:
+        with pytest.raises(NotImplementedError):
+            Scheduler(engines[0], **args)
+        return
+    sched = Scheduler(engines[0], **args)
+    assert sched.prefix_share == kw.get("prefix_share", False)
+    assert (sched.drafter is not None) == ("speculate" in kw)
 
 
 @pytest.fixture(scope="module")

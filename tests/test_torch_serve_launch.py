@@ -3,28 +3,35 @@
 The same argv lists go through ``repro.launch.serve.main`` and
 ``repro_torch.launch.serve.main`` (plus ``--device cpu``, a flag of the
 port only) with the engine and the scheduler replaced by recorders: both
-must build the same model config and hand the scheduler the same
-settings, the backend ``pallas_paged`` read as ``cuda_paged``.  Omitted
-flags mean the reference's defaults: gemma2-2b, the ``gathered`` backend,
-monolithic prefill and monolithic lanes.  ``cuda_paged`` without a page
-size raises, as the reference's ``pallas_paged`` does.
+must build the same model config, hand the scheduler the same settings
+(the backend ``pallas_paged`` read as ``cuda_paged``; prefix sharing,
+speculation and the draft depth included) and submit the same prompts
+(a shared prefix from ``--shared-prefix-len``, tails tiled from
+``--prompt-pattern``).  Omitted flags mean the reference's defaults:
+gemma2-2b, the ``gathered`` backend, monolithic prefill and monolithic
+lanes, no sharing, no speculation.  ``cuda_paged`` without a page size
+raises, as the reference's ``pallas_paged`` does, and the port's
+scheduler still refuses the kernel autotuner.
 """
 
 import dataclasses
 import sys
 import types
 
+import numpy as np
 import pytest
+import torch
 
 import repro.launch.serve as jax_launch
 from repro.runtime import Scheduler as JaxScheduler
 from repro_torch.launch import serve as serve_launch
-from repro_torch.runtime import Scheduler
+from repro_torch.models.transformer import init_params
+from repro_torch.runtime import Scheduler, ServeEngine
 
 # the settings both launchers hand the scheduler
 SETTINGS = ("batch_size", "mode", "prefill_chunk", "prefill_budget",
             "kv_page_size", "kv_pages", "attn_backend", "kv_codec",
-            "log_every")
+            "prefix_share", "speculate", "draft_k", "log_every")
 
 ARGVS = [
     [],
@@ -43,6 +50,15 @@ ARGVS = [
      "--kv-page-size", "8", "--prefill-chunk", "8"],
     ["--arch", "phi3-medium-14b", "--no-compress"],
     ["--arch", "minitron-8b", "--prefill-chunk", "3"],
+    ["--arch", "minitron-8b", "--attn-backend", "{paged}", "--kv-page-size",
+     "16", "--prefill-chunk", "16", "--prefix-share", "--shared-prefix-len",
+     "32", "--speculate", "ngram", "--prompt-pattern", "8"],
+    ["--kv-page-size", "8", "--prefill-chunk", "4", "--prefix-share",
+     "--shared-prefix-len", "100", "--requests", "6"],
+    ["--arch", "deepseek-v2-236b", "--speculate", "draft", "--draft-k", "7",
+     "--prompt-pattern", "5", "--prompt-len", "23"],
+    ["--speculate", "ngram", "--draft-k", "2", "--kv-page-size", "4",
+     "--kv-codec", "cluster", "--shared-prefix-len", "10"],
 ]
 
 
@@ -57,11 +73,20 @@ def _recorders(seen):
             seen["compress"] = kw["compress"]
             self.compressed = False
 
-    def sched(engine, **kw):
-        seen["sched"] = kw
-        raise _Stop
+    class Sched:
+        """Records the settings and the submitted prompts; stops at run."""
 
-    return Engine, sched
+        def __init__(self, engine, **kw):
+            seen["sched"] = kw
+            seen["prompts"] = []
+
+        def submit(self, prompt, gen):
+            seen["prompts"].append((np.asarray(prompt).tolist(), gen))
+
+        def run(self):
+            raise _Stop
+
+    return Engine, Sched
 
 
 def reference_settings(argv, monkeypatch, scheduler=None):
@@ -101,8 +126,15 @@ def test_same_argv_builds_the_same_scheduler(argv, monkeypatch):
     assert got["compress"] == want["compress"]
     assert {k: got["sched"][k] for k in SETTINGS} == \
         {k: want["sched"][k] for k in SETTINGS}
-    assert (want["sched"]["prefix_share"], want["sched"]["kernel_tune"],
-            want["sched"]["speculate"]) == (False, None, "off")
+    assert got["prompts"] == want["prompts"] and got["prompts"]
+    assert want["sched"]["kernel_tune"] is None
+    assert (want["sched"]["prefix_share"], want["sched"]["speculate"],
+            want["sched"]["draft_k"]) == \
+        ("--prefix-share" in argv,
+         argv[argv.index("--speculate") + 1] if "--speculate" in argv
+         else "off",
+         int(argv[argv.index("--draft-k") + 1]) if "--draft-k" in argv
+         else 4)
     if not argv:
         assert (got["cfg"]["name"], got["sched"]["attn_backend"],
                 got["sched"]["prefill_chunk"],
@@ -126,3 +158,24 @@ def test_kernel_backend_without_a_page_size_raises(chunk, monkeypatch):
         reference_settings(argv, monkeypatch, real(JaxScheduler))
     with pytest.raises(ValueError, match="kv_page_size"):
         port_settings(argv, monkeypatch, real(Scheduler))
+
+
+def test_kernel_tune_alone_is_still_refused():
+    """The autotuner is not ported: the port's scheduler refuses
+    ``kernel_tune`` with ``NotImplementedError`` on any backend, while
+    prefix sharing and speculation are accepted."""
+    cfg = serve_launch.tiny_config("minitron-8b")
+    engine = ServeEngine(cfg, init_params(
+        cfg, torch.Generator().manual_seed(0), "cpu"), device="cpu",
+        compress=False)
+    for tune in ("auto", "16", "16,1"):
+        for backend in ("gathered", "cuda_paged"):
+            with pytest.raises(NotImplementedError, match="kernel_tune"):
+                Scheduler(engine, kernel_tune=tune, attn_backend=backend,
+                          kv_page_size=16)
+    sched = Scheduler(engine, kv_page_size=16, prefill_chunk=16,
+                      prefix_share=True, speculate="ngram", draft_k=2)
+    assert (sched.prefix_share, sched.speculate, sched.draft_k) == \
+        (True, "ngram", 2)
+    assert Scheduler(engine, kernel_tune="off", kv_page_size=16).drafter \
+        is None
