@@ -19,6 +19,15 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` with nvcc
   by those runs, that every request completed, that a second run gives
   the same tokens, and that ``WeightStore.fused_operands`` on a
   full-width MLP matrix gives the materialised weights' binary product;
+* telemetry and ``--cache-mb auto``: the minitron main path serves the
+  same requests from a cold tile cache with ``Telemetry(trace=True)``
+  (tokens and launches those of the untraced run; the Chrome trace, its
+  JSONL and the Prometheus text written, reloaded and checked against the
+  counters; phase histograms printed, with warm ms/step with telemetry off
+  and on and the device busy of a profiled traced run), then at the
+  decode-cache capacity ``recommend_store_capacity`` picks (the sweep's
+  seconds, knee and projected hit rate printed; tokens those of the
+  unbounded run);
 * MLA: holds the MLA paged-attention kernel (one 512-wide latent head
   that is key and value, a 64-wide rope operand, 128 query heads; fp and
   codec pools; split TF32 on tensor cores) against its plain version, then
@@ -104,6 +113,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -132,11 +142,14 @@ from repro_torch.launch.serve import (  # noqa: E402
 from repro_torch.models import reactnet as rn  # noqa: E402
 from repro_torch.models.transformer import init_params  # noqa: E402
 from repro_torch.runtime import (  # noqa: E402
-    Request, Scheduler, ServeEngine, ServeMetrics, SlotPool)
+    NULL_TELEMETRY, Request, Scheduler, ServeEngine, ServeMetrics, SlotPool,
+    Telemetry, parse_prom, recommend_store_capacity)
 from repro_torch.runtime import scheduler as sched_mod  # noqa: E402
 from repro_torch.runtime.drafter import (  # noqa: E402
     DraftModelDrafter, draft_config)
 from repro_torch.runtime.scheduler import SLOT_LEN_QUANTUM  # noqa: E402
+from repro_torch.runtime.telemetry import (  # noqa: E402
+    PID_ENGINE, PID_REQUEST)
 from repro_torch.tree import (  # noqa: E402
     tree_leaves, tree_map, tree_map_with_path)
 from profile_reactnet import profile_forward  # noqa: E402
@@ -822,6 +835,222 @@ def profile_serve(engine, prompts, **kw) -> dict:
         if i < 8 or "attention_kernel" in key:
             print(f"  {ms:9.3f} ms  x{n:<5d} {key[:90]}")
     return out
+
+
+def _use_telemetry(engine, tel) -> None:
+    """Point the engine's scheduler hooks and its weight store at ``tel``."""
+    engine.telemetry = engine.store.telemetry = tel
+
+
+def _check_trace(events, rids, label) -> None:
+    """The reloaded trace events (metadata dropped): one lifecycle per
+    request on its own track, every request-track event inside its
+    ``request`` span, engine spans nested by containment, and each
+    track's end times in recording order monotone (1 us slack)."""
+    eps = 1.0
+    last: dict = {}
+    for e in events:
+        if e["ts"] < 0 or e.get("dur", 0.0) < 0:
+            fail(f"{label}: negative timestamp or duration: {e}")
+        end = e["ts"] + e.get("dur", 0.0)
+        track = (e["pid"], e["tid"])
+        if end < last.get(track, -1.0) - eps:
+            fail(f"{label}: track {track} goes back in time at {e}")
+        last[track] = max(end, last.get(track, -1.0))
+    for rid in rids:
+        track = [e for e in events
+                 if e["pid"] == PID_REQUEST and e["tid"] == rid]
+        names = collections.Counter(e["name"] for e in track)
+        if any(names[n] != 1 for n in ("queued", "admitted", "request",
+                                       "retired", "first_token")):
+            fail(f"{label}: request {rid}'s lifecycle events {names}")
+        req = next(e for e in track if e["name"] == "request")
+        queued = next(e for e in track if e["name"] == "queued")
+        lo, hi = req["ts"], req["ts"] + req["dur"]
+        if abs(queued["ts"] - lo) > eps or any(
+                e["ts"] < lo - eps or e["ts"] + e.get("dur", 0.0) > hi + eps
+                for e in track):
+            fail(f"{label}: request {rid}'s events leave its request span")
+    stack: list = []
+    spans = sorted((e for e in events
+                    if e["pid"] == PID_ENGINE and e["ph"] == "X"),
+                   key=lambda e: (e["ts"], -e["dur"]))
+    for e in spans:
+        while stack and stack[-1] <= e["ts"] + eps:
+            stack.pop()
+        end = e["ts"] + e["dur"]
+        if stack and end > stack[-1] + eps:
+            fail(f"{label}: engine span {e['name']} at {e['ts']:.1f} us "
+                 f"overlaps its parent without nesting")
+        stack.append(end)
+
+
+def _phase_lines(label, tel) -> None:
+    for phase, h in sorted(tel.phases.items()):
+        p50, p99 = h.percentiles(50, 99)
+        print(f"{label} phase {phase}: n {h.n}, p50 {p50 * 1e3:.3f} ms, "
+              f"p99 {p99 * 1e3:.3f} ms, total {h.total * 1e3:.1f} ms (host)")
+
+
+def phase_serve_telemetry(engine, prompts, toks, launches) -> None:
+    """The main path's 8 requests again from a cold tile cache with
+    ``Telemetry(trace=True)``: the tokens and the decode and attention
+    launches must be the untraced run's; the Chrome trace, the JSONL and
+    the Prometheus text are written to a temporary directory and reloaded
+    (one ``request`` span a request, spans nested, timestamps monotone;
+    ``parse_prom`` takes the text, whose counters equal ``ServeMetrics``,
+    the cache and the store).  Then the phase histograms (host clock),
+    warm ms/step with telemetry off and on (tokens and launches equal),
+    and the device busy of one profiled warm traced run."""
+    tel = Telemetry(trace=True)
+    _use_telemetry(engine, tel)
+    engine.cache.clear()
+    engine.cache.reset_counters()
+    engine.metrics = ServeMetrics()
+    _reset_counts()
+    got, wall, sched = _serve(engine, prompts)
+    counts = {"huffman_decode": huffman_decode.launches,
+              "paged_mixed_attention": _attn_launches(False)}
+    if got != toks:
+        fail("the traced serve gave other tokens than the untraced one")
+    if counts != launches:
+        fail(f"the traced serve launched {counts}, the untraced {launches}")
+    m, st = engine.metrics, engine.cache.stats()
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = [os.path.join(tmp, f) for f in
+                 ("trace.json", "trace.jsonl", "metrics.prom")]
+        tel.tracer.write_chrome(paths[0])
+        tel.tracer.write_jsonl(paths[1])
+        with open(paths[2], "w") as f:
+            f.write(engine.render_prom())
+        with open(paths[0]) as f:
+            chrome = json.load(f)
+        with open(paths[1]) as f:
+            jsonl = [json.loads(line) for line in f]
+        with open(paths[2]) as f:
+            text = f.read()
+        sizes = [os.path.getsize(p) for p in paths]
+    events = [e for e in chrome["traceEvents"] if e["ph"] != "M"]
+    if jsonl != events or len(events) != len(tel.tracer.events):
+        fail("the JSONL events differ from the Chrome trace's")
+    rids = sorted(r.rid for r in sched.completed)
+    n_req = sum(e["name"] == "request" and e["pid"] == PID_REQUEST
+                for e in events)
+    if n_req != len(prompts):
+        fail(f"{n_req} request spans for {len(prompts)} requests")
+    _check_trace(events, rids, "serve telemetry")
+    prom = parse_prom(text)
+    want = {"repro_tokens_generated_total": m.tokens_generated,
+            "repro_requests_completed_total": m.requests_completed,
+            "repro_decode_steps_total": m.decode_steps,
+            "repro_prefill_chunks_total": m.prefill_chunks,
+            "repro_kv_gather_bytes_total": m.kv_gather_bytes,
+            "repro_cache_hits_total": st["hits"],
+            "repro_cache_misses_total": st["misses"],
+            "repro_cache_evictions_total": st["evictions"],
+            "repro_cache_bytes_streamed_total": st["bytes_streamed"],
+            "repro_store_prefetch_dispatched_total":
+                engine.store.prefetch_dispatched,
+            "repro_ttft_seconds_count": m.ttft_hist.n,
+            "repro_decode_step_seconds_count": m.step_hist.n}
+    for phase, h in tel.phases.items():
+        safe = phase.replace(".", "_").replace("-", "_")
+        want[f"repro_phase_{safe}_seconds_count"] = h.n
+        n_spans = sum(e["name"] == phase and e["pid"] == PID_ENGINE
+                      for e in events)
+        if n_spans != h.n:
+            fail(f"phase {phase}: {h.n} timings, {n_spans} spans")
+    got_prom = {k: prom.get((k, "")) for k in want}
+    if got_prom != {k: float(v) for k, v in want.items()}:
+        fail(f"the Prometheus text disagrees with the counters: "
+             f"{got_prom} vs {want}")
+    sample = engine.metrics.registry(cache=engine.cache, store=engine.store,
+                                     telemetry=tel).sample()
+    if any(prom[(k, "")] != v for k, v in sample.items()):
+        fail("a Prometheus scalar does not re-parse to its value")
+    print(f"serve telemetry: cold traced run {wall:.2f}s, tokens and "
+          f"launches {counts} those of the untraced run; "
+          f"{len(events)} events ({n_req} request spans), trace / JSONL / "
+          f"Prometheus {sizes} bytes, reloaded; {len(prom)} samples, "
+          f"counters equal ServeMetrics, the cache and the store; spans "
+          f"nested, timestamps monotone")
+    _phase_lines("serve telemetry cold", tel)
+    # warm, off then on: the gates are tokens and launches, the ms/step
+    # host-clock figures are printed for information
+    runs = {}
+    for name, rec in (("off", NULL_TELEMETRY), ("on", Telemetry(trace=True))):
+        _use_telemetry(engine, rec)
+        engine.metrics = ServeMetrics()
+        _reset_counts()
+        got, wall, _ = _serve(engine, prompts)
+        runs[name] = (got, huffman_decode.launches, _attn_launches(False),
+                      engine.metrics.ms_per_token(), wall, rec)
+    if runs["off"][:3] != runs["on"][:3] or runs["on"][0] != toks:
+        fail("warm serves with telemetry off and on differ in tokens or "
+             "launches")
+    print(f"serve telemetry warm: off {runs['off'][3]:.2f} ms/step "
+          f"({runs['off'][4]:.2f}s), on {runs['on'][3]:.2f} ms/step "
+          f"({runs['on'][4]:.2f}s), host clock, for information; tokens and "
+          f"launches (decode {runs['on'][1]}, attention {runs['on'][2]}) "
+          f"equal")
+    _phase_lines("serve telemetry warm", runs["on"][5])
+    _use_telemetry(engine, Telemetry(trace=True))
+    prof = profile_serve(engine, prompts)
+    print(f"serve telemetry warm traced run profiled: device busy "
+          f"{prof['busy_ms']:.1f} ms, {prof['ms_step']:.2f} ms/step, "
+          f"attention kernel {prof['attn_ms']:.3f} ms "
+          f"x{prof['attn_launches']}")
+    _phase_lines("serve telemetry profiled", engine.telemetry)
+    _use_telemetry(engine, NULL_TELEMETRY)
+
+
+def phase_cache_auto(engine, prompts, toks, launches) -> None:
+    """``--cache-mb auto`` on the full-width store: the capacity sweep
+    (host only) prints the working set, the knee, its fraction and the
+    projected hit rate with its seconds; the 8 requests then serve from a
+    cold cache at the knee and must give the unbounded run's tokens
+    (capacity changes speed only) and its attention launches.  The
+    measured hit rate is printed beside the projected one, not gated."""
+    n_tiles = engine.store.n_tiles(engine.model_id)
+    t0 = time.monotonic()
+    rec = recommend_store_capacity(engine.store, engine.model_id,
+                                   policy=engine.cache.policy.name)
+    secs = time.monotonic() - t0
+    curve = ", ".join(f"{c / rec['working_set']:.2f}x {r * 100:.1f}%"
+                      for c, r in zip(rec["capacities"], rec["rates"]))
+    print(f"cache auto: working set {rec['working_set']} B "
+          f"({rec['working_set'] / 2 ** 20:.2f} MiB, {n_tiles} tiles); "
+          f"knee {rec['capacity']} B ({rec['capacity'] / 2 ** 20:.2f} MiB, "
+          f"{rec['fraction']:.2f}x); projected hit rate "
+          f"{rec['hit_rate'] * 100:.1f}% (best {rec['best_rate'] * 100:.1f}"
+          f"%); sweep {secs:.2f}s on the host ({len(rec['capacities'])} "
+          f"capacities x 8 steps x {n_tiles} tiles)")
+    print(f"cache auto sweep: {curve}")
+    engine.cache.clear()
+    engine.cache.reset_counters()
+    engine.cache.capacity_bytes = rec["capacity"]
+    engine.metrics = ServeMetrics()
+    _reset_counts()
+    try:
+        got, wall, _ = _serve(engine, prompts)
+        n_dec, n_attn = huffman_decode.launches, _attn_launches(False)
+    finally:
+        engine.cache.capacity_bytes = None
+    st = engine.cache.stats()
+    if got != toks:
+        fail("serving at the recommended capacity gave other tokens than "
+             "the unbounded run")
+    if n_attn != launches["paged_mixed_attention"] or \
+            n_dec < launches["huffman_decode"]:
+        fail(f"serving at the recommended capacity launched decode {n_dec} "
+             f"and attention {n_attn} times; unbounded: {launches}")
+    print(f"cache auto serve: {wall:.2f}s from a cold cache at "
+          f"{rec['capacity']} B, {engine.metrics.ms_per_token():.2f} "
+          f"ms/step; measured hit rate {st['hit_rate'] * 100:.1f}% "
+          f"(projected {rec['hit_rate'] * 100:.1f}% over 8 steps), "
+          f"{st['evictions']} evictions, decode launches {n_dec} "
+          f"(unbounded {launches['huffman_decode']}), attention {n_attn}; "
+          f"tokens those of the unbounded run")
 
 
 # the serving paths beside the main one, each over _serve's defaults (cuda_paged,
@@ -2849,6 +3078,9 @@ def main() -> None:
     kernels += timed("attention verify", phase_attention_verify, dev)
     launches, prompts, fp_warm, toks = timed("serve minitron", phase_serve,
                                              engine)
+    timed("serve telemetry", phase_serve_telemetry, engine, prompts, toks,
+          launches)
+    timed("cache auto", phase_cache_auto, engine, prompts, toks, launches)
     codec_launches = timed("serve minitron codec", phase_serve_codec,
                            engine, prompts, launches, fp_warm)
     launches["paged_mixed_attention_codec"] = \

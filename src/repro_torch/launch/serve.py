@@ -24,6 +24,22 @@ short pattern, the repetitive text where n-gram drafts are accepted.  It
 prints the same summary lines as the reference launcher for what it
 supports.
 
+Observability, as in the reference launcher: ``--trace-out trace.json``
+records every request's lifecycle span tree (queued -> admitted ->
+prefill chunks -> decode -> retired) plus engine phase spans as
+Chrome-trace JSON (open it in ``chrome://tracing`` or ui.perfetto.dev;
+``--trace-jsonl`` also dumps the raw events one a line), and
+``--metrics-out metrics.prom`` dumps every serving counter, gauge and
+histogram as Prometheus text.  A trace output turns on tracing; a metrics
+output alone records the phase histograms only.  Both are checked before
+exit (one ``request`` span per completed request, the JSON reloads, the
+text re-parses) and neither changes the tokens.  The phases are timed on
+the host clock: on the card a phase's time is the time to enqueue its
+work unless it waits on the device (a token readback does).
+``--cache-mb auto`` replays the materialize access pattern over a grid of
+capacities and serves at the hit-rate-cliff knee.  The reference's
+``--kernel-tune`` is not taken: it tunes TPU launch knobs.
+
   PYTHONPATH=src python -m repro_torch.launch.serve --scale tiny --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --scale tiny \
       --device cuda --attn-backend cuda_paged --kv-page-size 16 \
@@ -40,6 +56,10 @@ supports.
       --scale tiny --arch minitron-8b --attn-backend cuda_paged \
       --kv-page-size 16 --prefill-chunk 16 --prefix-share \
       --shared-prefix-len 32 --speculate ngram --prompt-pattern 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+      --scale tiny --arch minitron-8b --cache-mb auto \
+      --trace-out trace.json --trace-jsonl trace.jsonl \
+      --metrics-out metrics.prom
 
 At ``--scale full`` registration compresses every full-width dense MLP
 matrix on the host first (about 10 s each on the H100 machine; 64 for
@@ -51,6 +71,7 @@ their published widths.
 from __future__ import annotations
 
 import argparse
+import json
 import time
 
 import numpy as np
@@ -60,7 +81,8 @@ from repro_torch import resolve_device
 from repro_torch.configs import base as cfgs
 from repro_torch.kernels import kv_codec as kvc
 from repro_torch.models.transformer import init_params
-from repro_torch.runtime import Scheduler, ServeEngine
+from repro_torch.runtime import (Scheduler, ServeEngine, Telemetry,
+                                 parse_prom, recommend_store_capacity)
 from repro_torch.runtime.decode_cache import POLICIES
 
 TINY_OVERRIDES = dict(
@@ -146,6 +168,17 @@ def codec_report(pool, m) -> None:
               f"({rep['clustered_ratio']:.2f}x)")
 
 
+def _cache_mb(text: str):
+    """``--cache-mb``: a capacity in MiB, or ``auto``."""
+    if text == "auto":
+        return text
+    try:
+        return float(text)
+    except ValueError:
+        raise argparse.ArgumentTypeError(
+            f"expected a number of MiB or 'auto', got {text!r}") from None
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="gemma2-2b",
@@ -162,9 +195,11 @@ def main(argv=None):
     ap.add_argument("--gen", type=int, default=32)
     ap.add_argument("--requests", type=int, default=0,
                     help="total requests to serve (default: one full batch)")
-    ap.add_argument("--cache-mb", type=float, default=None,
+    ap.add_argument("--cache-mb", type=_cache_mb, default=None,
                     help="decode-tile cache capacity in MiB (omit = "
-                         "unbounded; 0 = caching disabled)")
+                         "unbounded; 0 = caching disabled; 'auto' = sweep "
+                         "the materialize access pattern over a capacity "
+                         "grid and serve at the hit-rate-cliff knee)")
     ap.add_argument("--policy", choices=sorted(POLICIES), default="lru",
                     help="decode-cache eviction policy")
     ap.add_argument("--mode", choices=["continuous", "wave"],
@@ -220,6 +255,16 @@ def main(argv=None):
     ap.add_argument("--no-compress", action="store_true",
                     help="uncompressed baseline on the same scheduler")
     ap.add_argument("--log-every", type=int, default=16)
+    ap.add_argument("--trace-out", type=str, default=None,
+                    help="write per-request lifecycle spans + engine phase "
+                         "spans as Chrome-trace JSON to this path (open in "
+                         "chrome://tracing or ui.perfetto.dev)")
+    ap.add_argument("--trace-jsonl", type=str, default=None,
+                    help="also dump the raw trace events as JSONL (one "
+                         "event a line) to this path")
+    ap.add_argument("--metrics-out", type=str, default=None,
+                    help="write every serving counter/gauge/histogram in "
+                         "Prometheus text-exposition format to this path")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
@@ -236,8 +281,14 @@ def main(argv=None):
                   f"{cfgs.get_config(args.arch).num_layers} -> "
                   f"{cfg.num_layers} layers (published widths)")
     n_requests = args.requests or args.batch
-    cache_bytes = None if args.cache_mb is None \
+    cache_auto = args.cache_mb == "auto"
+    cache_bytes = None if args.cache_mb is None or cache_auto \
         else int(args.cache_mb * 2 ** 20)
+    # trace spans only when a trace sink was asked for; phase histograms
+    # ride along whenever any telemetry output is; no flag, no recorder
+    telemetry = Telemetry(trace=bool(args.trace_out or args.trace_jsonl)) \
+        if (args.trace_out or args.trace_jsonl or args.metrics_out) \
+        else None
 
     gen = torch.Generator(device=device).manual_seed(0)
     t0 = time.monotonic()
@@ -245,8 +296,21 @@ def main(argv=None):
     engine = ServeEngine(cfg, params, device=device,
                          compress=not args.no_compress,
                          cache_bytes=cache_bytes, cache_policy=args.policy,
-                         prefetch=not args.no_prefetch)
+                         prefetch=not args.no_prefetch, telemetry=telemetry)
     del params
+    if cache_auto:
+        if not engine.compressed:
+            raise SystemExit("--cache-mb auto needs the compressed path; "
+                             "drop --no-compress")
+        rec = recommend_store_capacity(engine.store, engine.model_id,
+                                       policy=args.policy)
+        engine.cache.capacity_bytes = rec["capacity"]
+        print(f"cache autotune: working set "
+              f"{rec['working_set'] / 2 ** 20:.2f} MiB -> recommended "
+              f"capacity {rec['capacity'] / 2 ** 20:.2f} MiB "
+              f"({rec['fraction']:.2f}x, projected hit rate "
+              f"{rec['hit_rate'] * 100:.1f}%, best "
+              f"{rec['best_rate'] * 100:.1f}%)")
     if engine.compressed:
         rep = engine.report
         print(f"weight store: {rep['layers']} compressed MLP tensors, "
@@ -348,6 +412,30 @@ def main(argv=None):
               f"tokens accepted ({m.spec_acceptance_rate() * 100:.0f}%), "
               f"{m.decode_steps / max(total, 1):.2f} verify steps/token")
     print("sample token ids:", completed[0].generated[:16])
+
+    if telemetry is not None and telemetry.tracing:
+        tr = telemetry.tracer
+        n_spans = sum(1 for e in tr.events
+                      if e["ph"] == "X" and e["name"] == "request")
+        assert n_spans == len(completed), \
+            f"trace has {n_spans} request spans, served {len(completed)}"
+        if args.trace_out:
+            tr.write_chrome(args.trace_out)
+            with open(args.trace_out) as f:
+                loaded = json.load(f)          # self-check: valid JSON
+            print(f"trace: {len(loaded['traceEvents'])} events "
+                  f"({n_spans} request spans) -> {args.trace_out} "
+                  f"(open in chrome://tracing or ui.perfetto.dev)")
+        if args.trace_jsonl:
+            tr.write_jsonl(args.trace_jsonl)
+            print(f"trace events (JSONL) -> {args.trace_jsonl}")
+    if args.metrics_out:
+        text = engine.render_prom()
+        parse_prom(text)                       # self-check: parseable
+        with open(args.metrics_out, "w") as f:
+            f.write(text)
+        print(f"metrics: {len(text.splitlines())} lines of Prometheus "
+              f"text exposition -> {args.metrics_out}")
     return completed
 
 

@@ -398,6 +398,26 @@ class DecodeTileCache:
             "entries": len(self._entries),
         }
 
+    def prom_metrics(self) -> list:
+        """(name, kind, getter, help) rows for a pull-based metrics
+        registry (``ServeMetrics.registry`` prefixes them ``cache_``)."""
+        return [
+            ("hits_total", "counter", lambda: self.hits,
+             "decode-tile cache hits"),
+            ("misses_total", "counter", lambda: self.misses,
+             "decode-tile cache misses"),
+            ("evictions_total", "counter", lambda: self.evictions,
+             "decode-tile cache evictions"),
+            ("bytes_streamed_total", "counter", lambda: self.bytes_streamed,
+             "compressed bytes fetched and decoded on misses"),
+            ("bytes_avoided_total", "counter", lambda: self.bytes_avoided,
+             "compressed bytes the cache absorbed on hits"),
+            ("resident_bytes", "gauge", lambda: self.resident_bytes,
+             "decoded bytes currently resident"),
+            ("entries", "gauge", lambda: len(self._entries),
+             "decoded tiles currently resident"),
+        ]
+
     def reset_counters(self) -> None:
         self.hits = self.misses = self.evictions = 0
         self.bytes_streamed = self.bytes_avoided = 0

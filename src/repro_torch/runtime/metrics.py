@@ -12,8 +12,16 @@ pool, ``waves`` the wave-mode admission rounds, the ``prefix_*`` counters
 prefix sharing (hits, reused prompt tokens, skipped chunks, copy-on-write
 copies, index evictions, the shared-page gauge) and the ``spec_*``
 counters speculative decoding (rounds, drafts proposed, accepted and
-rolled back).  The Prometheus registry comes with telemetry export in a
-later slice.
+rolled back).
+
+Everything is exportable as Prometheus text exposition through
+:meth:`ServeMetrics.render_prom` (a pull-based
+:class:`~repro_torch.runtime.telemetry.MetricsRegistry`), with the
+reference's metric names, kinds and help strings, plus the decode-cache
+and weight-store counters and the telemetry phase histograms when given.
+The one counter of the reference's registry left out is
+``kernel_qblock_rounded``: it counts gcd-rounded TPU ``q_block`` launches,
+and the port takes no ``q_block``.
 """
 
 from __future__ import annotations
@@ -21,7 +29,7 @@ from __future__ import annotations
 import dataclasses
 import time
 
-from repro_torch.runtime.telemetry import Histogram
+from repro_torch.runtime.telemetry import Histogram, MetricsRegistry
 
 
 def _fmt_bytes(n: float) -> str:
@@ -309,3 +317,107 @@ class ServeMetrics:
             parts.append(f"streamed {_fmt_bytes(cache.bytes_streamed)}, "
                          f"avoided {_fmt_bytes(cache.bytes_avoided)}")
         return " | ".join(parts)
+
+    # -- pull-based export -------------------------------------------------
+    def registry(self, cache=None, store=None,
+                 telemetry=None) -> MetricsRegistry:
+        """Every serving counter/gauge/histogram — plus the decode-cache,
+        weight-store, and telemetry phase metrics when given — registered
+        by name in a pull-based :class:`MetricsRegistry`."""
+        reg = MetricsRegistry()
+        for field, help_ in (
+                ("tokens_generated", "tokens produced (prefill + decode)"),
+                ("requests_admitted", "requests admitted to a slot"),
+                ("requests_completed", "requests retired"),
+                ("prefills", "monolithic batch-1 prefills"),
+                ("prefill_chunks", "chunked-prefill chunks"),
+                ("prefill_chunk_tokens", "prompt tokens through chunks"),
+                ("decode_steps", "batched decode steps"),
+                ("slot_steps", "decode steps x active slots"),
+                ("capacity_steps", "decode steps x total slots"),
+                ("waves", "wave-mode admission rounds"),
+                ("page_use_steps", "decode steps x pages in use"),
+                ("page_capacity_steps", "decode steps x pool pages"),
+                ("kv_gather_bytes", "decode-path KV gather/scatter bytes"),
+                ("kv_gather_bytes_avoided",
+                 "decode-path KV copies avoided (pallas_paged)"),
+                ("kv_prefill_gather_bytes",
+                 "prefill-path KV install-copy bytes"),
+                ("kv_prefill_gather_bytes_avoided",
+                 "prefill install copies avoided (mixed-step)"),
+                ("kv_codec_bytes_fp",
+                 "resident KV page bytes at fp (codec step sum)"),
+                ("kv_codec_bytes_resident",
+                 "resident KV page bytes compressed (codec step sum)"),
+                ("kv_bytes_avoided",
+                 "KV pool bytes the codec kept out of HBM"),
+                ("prefix_hits",
+                 "admissions that mapped a cached prefix"),
+                ("prefix_tokens_reused",
+                 "prompt tokens served from shared KV pages"),
+                ("prefill_chunks_avoided",
+                 "prefill chunks skipped via prefix sharing"),
+                ("prefix_cow_copies",
+                 "shared KV pages copied on write"),
+                ("prefix_evictions",
+                 "prefix-index entries evicted under pressure"),
+                ("shared_page_steps",
+                 "decode steps x shared pages (occupancy sum)"),
+                ("spec_rounds",
+                 "speculative verifications (round x slot pairs)"),
+                ("spec_draft_tokens",
+                 "draft tokens proposed for verification"),
+                ("spec_accepted_tokens",
+                 "draft tokens the verifier accepted"),
+                ("spec_rejected_tokens",
+                 "draft tokens rolled back after rejection")):
+            reg.counter(f"{field}_total",
+                        (lambda f=field: getattr(self, f)), help_)
+        reg.counter("prefill_seconds_total", lambda: self.prefill_s,
+                    "wall seconds spent in prefill")
+        reg.counter("decode_seconds_total", lambda: self.decode_s,
+                    "wall seconds spent in decode steps")
+        reg.counter("decode_stall_seconds_total",
+                    lambda: self.decode_stall_s,
+                    "chunk seconds while decode work waited")
+        reg.gauge("pages_in_use", lambda: self.pages_in_use,
+                  "KV pages holding live request state (last step)")
+        reg.gauge("pages_total", lambda: self.pages_total,
+                  "KV page-pool size (last step)")
+        reg.gauge("shared_pages", lambda: self.shared_pages,
+                  "KV pages referenced by >1 owner (last step)")
+        reg.gauge("kv_codec_error_bound", lambda: self.kv_codec_error_bound,
+                  "worst elementwise KV reconstruction error bound")
+        reg.gauge("kv_capacity_multiplier",
+                  lambda: self.kv_capacity_multiplier(),
+                  "effective KV capacity multiplier (fp/resident bytes)")
+        reg.gauge("spec_acceptance_rate",
+                  lambda: self.spec_acceptance_rate(),
+                  "fraction of proposed draft tokens accepted")
+        for name, hist, help_ in (
+                ("ttft_seconds", self.ttft_hist, "time to first token"),
+                ("tpot_seconds", self.tpot_hist, "time per output token"),
+                ("e2e_seconds", self.e2e_hist, "request end-to-end latency"),
+                ("prefill_chunk_seconds", self.chunk_hist,
+                 "prefill chunk duration"),
+                ("decode_step_seconds", self.step_hist,
+                 "decode step duration")):
+            reg.histogram(name, hist, help_)
+        if cache is not None:
+            for name, kind, getter, help_ in cache.prom_metrics():
+                getattr(reg, kind)(f"cache_{name}", getter, help_)
+        if store is not None:
+            for name, kind, getter, help_ in store.prom_metrics():
+                getattr(reg, kind)(f"store_{name}", getter, help_)
+        if telemetry is not None:
+            for phase in sorted(telemetry.phases):
+                safe = phase.replace(".", "_").replace("-", "_")
+                reg.histogram(f"phase_{safe}_seconds",
+                              (lambda p=phase: telemetry.phases[p]),
+                              f"wall seconds per {phase} phase")
+        return reg
+
+    def render_prom(self, cache=None, store=None, telemetry=None) -> str:
+        """Prometheus text exposition of :meth:`registry`."""
+        return self.registry(cache=cache, store=store,
+                             telemetry=telemetry).render()

@@ -49,6 +49,14 @@ snapshotted and restored), on the other layouts in two passes, a scoring
 pass on a copy of the cache and a committing pass at the accepted
 lengths.
 
+With a :class:`~repro_torch.runtime.telemetry.Telemetry` on the engine
+(``ServeEngine(telemetry=...)``) the scheduler records the reference's
+request lifecycle on each request's track (``queued``, ``admitted``,
+``prefix_hit``, ``prefill`` or ``prefill_chunk``, ``first_token``,
+``decode``, ``request``, ``retired``) and times its phases (``admit``,
+``mixed_step``, ``prefill``, ``decode``, the KV copies, the speculative
+rounds) on the host clock; telemetry never changes what is served.
+
 The kernel autotuner is not ported yet and is refused with
 ``NotImplementedError`` rather than served some other way.
 """
@@ -74,7 +82,8 @@ from repro_torch.runtime.decode_cache import DecodeTileCache, EvictionPolicy
 from repro_torch.runtime.drafter import make_drafter
 from repro_torch.runtime.metrics import ServeMetrics
 from repro_torch.runtime.prefix_index import PrefixIndex
-from repro_torch.runtime.telemetry import NULL_TELEMETRY
+from repro_torch.runtime.telemetry import (NULL_TELEMETRY, PID_REQUEST,
+                                           Telemetry)
 from repro_torch.runtime.weight_store import WeightStore
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -226,16 +235,22 @@ class ServeEngine:
     ``compress=True`` binarises and Huffman-compresses the MLP projections
     into the store and serves in BNN-MLP mode (``cfg.binarize_mlp``);
     ``compress=False`` serves the params as given.  ``params`` is the
-    model's tree of tensors (moved to ``device``)."""
+    model's tree of tensors (moved to ``device``).  ``telemetry`` accepts a
+    :class:`~repro_torch.runtime.telemetry.Telemetry` recorder
+    (request-lifecycle spans + phase histograms); the default is the
+    zero-cost null recorder, and telemetry never changes generated
+    tokens."""
 
     def __init__(self, cfg, params, *, device="cuda", compress: bool = True,
                  cache_bytes: int | None = None,
                  cache_policy: str | EvictionPolicy | None = None,
-                 prefetch: bool = True):
+                 prefetch: bool = True,
+                 telemetry: Telemetry | None = None):
         self.device = resolve_device(device)
         params = tree_map(lambda a: a.to(self.device), params)
         self.cache = DecodeTileCache(cache_bytes, policy=cache_policy)
-        self.telemetry = NULL_TELEMETRY
+        self.telemetry = telemetry if telemetry is not None \
+            else NULL_TELEMETRY
         self.store = WeightStore(self.cache, prefetch=prefetch,
                                  telemetry=self.telemetry)
         self.metrics = ServeMetrics()
@@ -391,6 +406,13 @@ class ServeEngine:
     def stats_line(self) -> str:
         return self.metrics.stats_line(self.cache if self.compressed
                                        else None)
+
+    def render_prom(self) -> str:
+        """Prometheus text exposition of every serving metric: the
+        ServeMetrics counters + histograms, the decode-cache and
+        weight-store counters, and any telemetry phase histograms."""
+        return self.metrics.render_prom(cache=self.cache, store=self.store,
+                                        telemetry=self.telemetry)
 
 
 @dataclasses.dataclass
@@ -1328,10 +1350,25 @@ class Scheduler:
         return pool.backend == "cuda_paged" and \
             self.prefill_chunk is not None
 
+    def _trace_admitted(self, req: Request, slot: Slot) -> None:
+        """Close the request's queued span and mark its admission."""
+        req.t_admit = time.monotonic()
+        tr = self.engine.telemetry.tracer
+        if tr.enabled:
+            tr.name_track(PID_REQUEST, req.rid, f"request {req.rid}")
+            tr.complete(PID_REQUEST, req.rid, "queued", req.t_submit,
+                        req.t_admit, prompt_len=req.prompt_len)
+            tr.instant(PID_REQUEST, req.rid, "admitted", req.t_admit,
+                       slot=slot.index, backend=self.attn_backend)
+
     def _record_first_token(self, req: Request, tok: int) -> None:
         req.generated.append(tok)
         req.t_first = time.monotonic()
         self.engine.metrics.record_ttft(req.t_first - req.t_submit)
+        tr = self.engine.telemetry.tracer
+        if tr.enabled:
+            tr.instant(PID_REQUEST, req.rid, "first_token", req.t_first,
+                       token=tok)
 
     def _start_or_admit(self, pool: SlotPool, req: Request, params,
                         completed: list[Request]) -> None:
@@ -1344,7 +1381,6 @@ class Scheduler:
             raise ValueError(f"request {req.rid} needs {need} cache "
                              f"positions > slot_len {pool.slot_len}")
         slot.req = req
-        req.t_admit = time.monotonic()
         if self.prefill_chunk is not None:
             slot.prefilling = True
             # a mapped prefix starts the cursor past it: those prompt
@@ -1357,13 +1393,25 @@ class Scheduler:
                 self.engine.metrics.record_prefix_hit(
                     slot.prefix_matched,
                     slot.prefix_matched // self.prefill_chunk)
+            self._trace_admitted(req, slot)
+            if slot.prefix_matched:
+                tr = self.engine.telemetry.tracer
+                if tr.enabled:
+                    tr.instant(PID_REQUEST, req.rid, "prefix_hit",
+                               req.t_admit, tokens=slot.prefix_matched)
             return
         t0 = time.monotonic()
+        self._trace_admitted(req, slot)
         tok, cache1 = self.engine.prefill_request(params, req.prompt,
                                                   pool.slot_len)
         pool.install(slot, cache1, tok)
+        t1 = time.monotonic()
+        tr = self.engine.telemetry.tracer
+        if tr.enabled:
+            tr.complete(PID_REQUEST, req.rid, "prefill", t0, t1,
+                        slot=slot.index, tokens=req.prompt_len)
         self._record_first_token(req, tok)
-        self.engine.metrics.record_admit(1, time.monotonic() - t0, tokens=1)
+        self.engine.metrics.record_admit(1, t1 - t0, tokens=1)
         self._maybe_finish(pool, slot, completed)
 
     def _maybe_finish(self, pool: SlotPool, slot: Slot,
@@ -1372,6 +1420,21 @@ class Scheduler:
         if len(req.generated) >= req.max_new_tokens:
             req.done = True
             req.t_done = time.monotonic()
+            tr = self.engine.telemetry.tracer
+            if tr.enabled:
+                pages = int((pool.table[slot.index] != DUMMY_PAGE).sum()) \
+                    if pool.paged else 0
+                if req.t_first is not None:
+                    tr.complete(PID_REQUEST, req.rid, "decode",
+                                req.t_first, req.t_done, slot=slot.index,
+                                tokens=len(req.generated),
+                                pages_held=pages)
+                tr.complete(PID_REQUEST, req.rid, "request", req.t_submit,
+                            req.t_done, prompt_len=req.prompt_len,
+                            tokens=len(req.generated),
+                            backend=self.attn_backend)
+                tr.instant(PID_REQUEST, req.rid, "retired", req.t_done,
+                           slot=slot.index)
             pool.retire(slot)
             completed.append(req)
             self.engine.metrics.record_completed(1)
@@ -1451,8 +1514,13 @@ class Scheduler:
                 logits, slot.pcache = self.engine.prefill_chunk_step(
                     params, slot.pcache, chunk, slot.prefill_cursor,
                     kv_quant=pool.codec)
-                m.record_prefill_chunk(c, time.monotonic() - t0,
-                                       stalled=bool(pool.active()))
+                dt = time.monotonic() - t0
+                m.record_prefill_chunk(c, dt, stalled=bool(pool.active()))
+                tr = self.engine.telemetry.tracer
+                if tr.enabled:
+                    tr.complete(PID_REQUEST, req.rid, "prefill_chunk",
+                                t0, t0 + dt, slot=slot.index, tokens=c,
+                                cursor=slot.prefill_cursor)
                 slot.prefill_cursor += c
                 spent += c
                 if slot.prefill_cursor >= req.prompt_len:
@@ -1616,9 +1684,16 @@ class Scheduler:
                 for i, d in drafts.items():
                     keep[i, acc[i]:len(d)] = True
                 pool.spec_restore(snaps, poss, keep)
+        tr = tel.tracer
         for slot, c in chunks:
             m.record_prefill_chunk(c, (dt - dt_decode) / len(chunks),
                                    stalled=bool(active))
+            if tr.enabled:
+                # chunks share one ragged step; each request's span covers
+                # the step's prefill share
+                tr.complete(PID_REQUEST, slot.req.rid, "prefill_chunk",
+                            t0, t0 + (dt - dt_decode), slot=slot.index,
+                            tokens=c, cursor=slot.prefill_cursor)
             slot.prefill_cursor += c
             if slot.prefill_cursor >= slot.req.prompt_len:
                 if not ok_rows[slot.index, 0]:

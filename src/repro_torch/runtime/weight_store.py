@@ -18,7 +18,11 @@ misses again.  Hit/miss/byte counters stay per tile and equal to the
 reference's on the same access sequence, and so do the prefetch counters:
 with ``prefetch`` on, the next layer's missing tiles are launched right
 after the current layer's are fetched (the launch is asynchronous on the
-card, as jax's dispatch was).
+card, as jax's dispatch was).  The telemetry phases are the reference's
+(``weights.materialize``, ``weights.prefetch``, ``weights.decode_tile``),
+except that one ``weights.decode_tile`` span covers one launch, with the
+number of tiles it decoded in its ``tiles`` argument, where the
+reference's covers one tile.
 
 :meth:`WeightStore.fused_operands` gives a layer's operands for the fused
 decode + xnor-popcount GEMM (``kernels.ops.compressed_binary_matmul``),
@@ -234,7 +238,8 @@ class WeightStore:
                 any_miss = True
             tiles.append(tile)
         if to_decode:
-            with self.telemetry.timed("weights.decode_tile"):
+            with self.telemetry.timed("weights.decode_tile",
+                                      tiles=len(to_decode)):
                 decoded = self._decode(layer, to_decode)
             for t, tile in zip(to_decode, decoded):
                 tiles[t] = tile
@@ -322,6 +327,18 @@ class WeightStore:
         return sum(l.tiled.n_tiles * l.tiled.c * l.tiled.s * 4
                    for ls in self._models[model_id].layers.values()
                    for l in ls)
+
+    def prom_metrics(self) -> list:
+        """(name, kind, getter, help) rows for a pull-based metrics
+        registry (``ServeMetrics.registry`` prefixes them ``store_``)."""
+        return [
+            ("prefetch_dispatched_total", "counter",
+             lambda: self.prefetch_dispatched,
+             "tile decodes dispatched ahead of use"),
+            ("prefetch_used_total", "counter",
+             lambda: self.prefetch_used,
+             "prefetched tile decodes consumed by a miss"),
+        ]
 
     def report(self, model_id: str) -> dict:
         entry = self._models[model_id]

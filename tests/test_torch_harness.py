@@ -94,6 +94,7 @@ _PORT_MODULES = {
     "repro_torch.configs.phi3_medium_14b", "repro_torch.configs.h2o_danube_1_8b",
     "repro_torch.configs.gemma2_2b", "repro_torch.configs.mixtral_8x22b",
     "repro_torch.runtime.prefix_index", "repro_torch.runtime.drafter",
+    "repro_torch.runtime.autotune", "repro_torch.runtime.telemetry",
 }
 
 

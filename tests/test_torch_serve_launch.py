@@ -11,7 +11,11 @@ speculation and the draft depth included) and submit the same prompts
 gemma2-2b, the ``gathered`` backend, monolithic prefill and monolithic
 lanes, no sharing, no speculation.  ``cuda_paged`` without a page size
 raises, as the reference's ``pallas_paged`` does, and the port's
-scheduler still refuses the kernel autotuner.
+scheduler still refuses the kernel autotuner.  The telemetry flags
+(``--trace-out``, ``--trace-jsonl``, ``--metrics-out``) give both engines
+the same recorder (tracing or histograms only), and ``--cache-mb`` the
+same capacity, or under ``auto`` the capacity the autotuner returns
+(their argv lists: ``tests/test_torch_serve_launch_flags.py``).
 """
 
 import dataclasses
@@ -61,6 +65,11 @@ ARGVS = [
      "--kv-codec", "cluster", "--shared-prefix-len", "10"],
 ]
 
+# what ``--cache-mb auto`` is told by the recorders' autotuner
+RECOMMENDED = dict(capacity=3 * 2 ** 20, fraction=0.75, hit_rate=0.8,
+                   best_rate=0.85, working_set=4 * 2 ** 20,
+                   capacities=[3 * 2 ** 20], rates=[0.8])
+
 
 class _Stop(Exception):
     pass
@@ -68,10 +77,21 @@ class _Stop(Exception):
 
 def _recorders(seen):
     class Engine:
+        """Records the engine settings; stands in for a compressed engine
+        (a store, a cache, a report) when ``--cache-mb auto`` needs one."""
+
         def __init__(self, cfg, params, **kw):
             seen["cfg"] = dataclasses.asdict(cfg)
             seen["compress"] = kw["compress"]
-            self.compressed = False
+            tel = kw.get("telemetry")
+            seen["engine"] = (kw["cache_bytes"], kw["cache_policy"],
+                              None if tel is None else tel.tracing)
+            self.compressed = "recommend" in seen
+            self.cache = types.SimpleNamespace(
+                capacity_bytes=kw["cache_bytes"])
+            self.store, self.model_id = "store", "lm"
+            self.report = dict(layers=1, packed_bytes=2, stream_bytes=2,
+                               ratio_stream=1.0)
 
     class Sched:
         """Records the settings and the submitted prompts; stops at run."""
@@ -79,6 +99,7 @@ def _recorders(seen):
         def __init__(self, engine, **kw):
             seen["sched"] = kw
             seen["prompts"] = []
+            seen["capacity"] = engine.cache.capacity_bytes
 
         def submit(self, prompt, gen):
             seen["prompts"].append((np.asarray(prompt).tolist(), gen))
@@ -86,12 +107,17 @@ def _recorders(seen):
         def run(self):
             raise _Stop
 
-    return Engine, Sched
+    def recommend(store, model_id, **kw):
+        seen["recommend"] = (store, model_id, kw)
+        return RECOMMENDED
+
+    return Engine, Sched, recommend
 
 
 def reference_settings(argv, monkeypatch, scheduler=None):
-    seen = {}
-    engine, sched = _recorders(seen)
+    seen = {"recommend": None} if "auto" in argv else {}
+    engine, sched, recommend = _recorders(seen)
+    monkeypatch.setattr(jax_launch, "recommend_store_capacity", recommend)
     monkeypatch.setattr(jax_launch, "ServeEngine", engine)
     monkeypatch.setattr(jax_launch, "Scheduler", scheduler or sched)
     monkeypatch.setattr(jax_launch, "get_model", lambda cfg: types.
@@ -106,8 +132,9 @@ def reference_settings(argv, monkeypatch, scheduler=None):
 
 
 def port_settings(argv, monkeypatch, scheduler=None):
-    seen = {}
-    engine, sched = _recorders(seen)
+    seen = {"recommend": None} if "auto" in argv else {}
+    engine, sched, recommend = _recorders(seen)
+    monkeypatch.setattr(serve_launch, "recommend_store_capacity", recommend)
     monkeypatch.setattr(serve_launch, "ServeEngine", engine)
     monkeypatch.setattr(serve_launch, "Scheduler", scheduler or sched)
     monkeypatch.setattr(serve_launch, "init_params",
@@ -118,12 +145,21 @@ def port_settings(argv, monkeypatch, scheduler=None):
     return seen
 
 
-@pytest.mark.parametrize("argv", ARGVS, ids=lambda a: " ".join(a) or "none")
-def test_same_argv_builds_the_same_scheduler(argv, monkeypatch):
+def check_same_settings(argv, monkeypatch):
+    """Both launchers on ``argv``: the same config, engine settings,
+    capacity, scheduler settings and prompts."""
     want = reference_settings(argv, monkeypatch)
     got = port_settings(argv, monkeypatch)
     assert got["cfg"] == want["cfg"]
     assert got["compress"] == want["compress"]
+    assert (got["engine"], got["capacity"], got.get("recommend")) == \
+        (want["engine"], want["capacity"], want.get("recommend"))
+    if "auto" in argv:
+        assert got["capacity"] == RECOMMENDED["capacity"]
+        assert got["recommend"] == ("store", "lm", {"policy": "freq"})
+    tracing = {"--trace-out", "--trace-jsonl"} & set(argv)
+    assert got["engine"][2] == (bool(tracing) if tracing or
+                                "--metrics-out" in argv else None)
     assert {k: got["sched"][k] for k in SETTINGS} == \
         {k: want["sched"][k] for k in SETTINGS}
     assert got["prompts"] == want["prompts"] and got["prompts"]
@@ -140,6 +176,11 @@ def test_same_argv_builds_the_same_scheduler(argv, monkeypatch):
                 got["sched"]["prefill_chunk"],
                 got["sched"]["kv_page_size"]) == \
             ("gemma2-2b", "gathered", None, None)
+
+
+@pytest.mark.parametrize("argv", ARGVS, ids=lambda a: " ".join(a) or "none")
+def test_same_argv_builds_the_same_scheduler(argv, monkeypatch):
+    check_same_settings(argv, monkeypatch)
 
 
 @pytest.mark.parametrize("chunk", [[], ["--prefill-chunk", "16"]])
