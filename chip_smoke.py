@@ -92,7 +92,19 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` with nvcc
   full width in ``ste``, ``packed`` and ``compressed`` conv modes,
   checks identical logits and each kernel's launches, profiles the
   packed and compressed forwards, and checks a small ReActNet's logits on
-  card and CPU.
+  card and CPU;
+* the paper's BNN workflow: ReActNet-A at its published shapes trains a
+  few steps with the STE (``loss_and_grads`` and the port's AdamW;
+  losses, gradients and leaves finite and clipped, BN running stats
+  moved by weight decay alone; ms/step by events, a profiled step's
+  device busy, peak memory), its trained weights are compressed and
+  deployed in the three conv modes with identical logits and each
+  kernel's launches, and one step of a small model is held card against
+  CPU; then ``examples/torch_train_reactnet.py``'s workflow trains on the
+  card, deploys through the kernels (launches counted), meets the
+  reference workflow's assertions (``tests/test_system.py::
+  TestPaperWorkflow``) and writes a compressed checkpoint, which is
+  restored and redeployed to the same predictions.
 
 Each phase prints its seconds.  The last two lines of standard output
 are one JSON object per kernel (``{"kernels": [...]}``; the GQA kernel at
@@ -122,9 +134,14 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 sys.path.insert(0, os.path.join(ROOT, "tools"))
+sys.path.insert(0, os.path.join(ROOT, "examples"))
 
+import torch_train_reactnet as train_example  # noqa: E402
+from repro_torch.ckpt import checkpoint as ckpt  # noqa: E402
 from repro_torch.configs.base import get_config  # noqa: E402
-from repro_torch.core import bitpack  # noqa: E402
+from repro_torch.core import (  # noqa: E402
+    bitpack, clustering, compression, frequency, huffman)
+from repro_torch.data.pipeline import SyntheticImages  # noqa: E402
 from repro_torch.kernels import _build, kv_codec, ops, ref  # noqa: E402
 from repro_torch.kernels.binarize_pack import (  # noqa: E402
     binarize_pack, binarize_pack_patches)
@@ -150,6 +167,7 @@ from repro_torch.runtime.drafter import (  # noqa: E402
 from repro_torch.runtime.scheduler import SLOT_LEN_QUANTUM  # noqa: E402
 from repro_torch.runtime.telemetry import (  # noqa: E402
     PID_ENGINE, PID_REQUEST)
+from repro_torch.train import optimizer as opt  # noqa: E402
 from repro_torch.tree import (  # noqa: E402
     tree_leaves, tree_map, tree_map_with_path)
 from profile_reactnet import profile_forward  # noqa: E402
@@ -231,6 +249,16 @@ RN_BATCH = 32
 RN_TOL = 1e-4                    # small model, card vs CPU: with exact
 #                                  params only the head's dot differs
 EXACT_VAR = 1.0 - 1e-5           # float32(var) + 1e-5 == 1.0: BN identity
+
+# ReActNet-A training: the example's optimizer for a few steps in ste mode
+RN_TRAIN_STEPS = 8
+RN_TRAIN_OC = train_example.opt_config(RN_TRAIN_STEPS)
+# one training step of the small model, card vs CPU with exact params: the
+# loss and each gradient leaf within TRAIN_TOL x the leaf's largest
+# element (the CPU tests hold the port to the reference at this bound)
+TRAIN_TOL = 1e-4
+# the paper's workflow: the example trained on the card for this many steps
+PAPER_STEPS = 150
 
 
 def fail(msg: str) -> None:
@@ -2285,6 +2313,281 @@ def phase_small_reactnet(dev) -> None:
           f"{worst:.3e} <= {RN_TOL}")
 
 
+# ---------------------------------------------------------------------------
+# the paper's BNN workflow: training, deploy on trained weights, checkpoint
+# ---------------------------------------------------------------------------
+
+def _check_train_step(label, prev, new, loss, grads, lr) -> None:
+    """Finite loss, gradients and params; every leaf within the latent
+    clip; BN running stats (no gradient in train mode) changed by the
+    weight decay alone."""
+    clip, wd = RN_TRAIN_OC.clip_latent, RN_TRAIN_OC.weight_decay
+    if not torch.isfinite(loss):
+        fail(f"{label}: loss {float(loss)}")
+    for (path, g), p0, p1 in zip(_with_paths(grads), tree_leaves(prev),
+                                 tree_leaves(new)):
+        if not torch.isfinite(g).all() or not torch.isfinite(p1).all():
+            fail(f"{label}: {path} has a non-finite gradient or value")
+        if float(p1.abs().max()) > clip:
+            fail(f"{label}: {path} outside the latent clip {clip}")
+        if path.endswith(("/mean", "/var")):
+            want = torch.clamp(p0 - lr * (wd * p0), -clip, clip)
+            if g.any() or not torch.equal(p1, want):
+                fail(f"{label}: BN running stat {path} changed by more than "
+                     f"the weight decay")
+
+
+def _with_paths(tree) -> list:
+    out = []
+    tree_map_with_path(lambda path, leaf: out.append((path, leaf)), tree)
+    return out
+
+
+def _small_train_step_vs_cpu(dev) -> float:
+    """One training step of the small ReActNet with exact params: the
+    card's loss and gradients against the CPU's."""
+    cfg = dataclasses.replace(rn.CONFIG, num_classes=10, image_size=32,
+                              blocks=((2, 1), (1, 2), (2, 2), (1, 1)))
+    params, images = _exact_reactnet(cfg, seed=5)
+    labels = torch.randint(0, cfg.num_classes, (images.shape[0],),
+                           generator=torch.Generator().manual_seed(5))
+    loss_c, grads_c = rn.loss_and_grads(cfg, params, {"images": images,
+                                                      "labels": labels})
+    loss_d, grads_d = rn.loss_and_grads(
+        cfg, tree_map(lambda t: t.to(dev), params),
+        {"images": images.to(dev), "labels": labels.to(dev)})
+    worst = abs(float(loss_d) - float(loss_c)) / abs(float(loss_c))
+    if worst > TRAIN_TOL:
+        fail(f"small ReActNet train step: loss card {float(loss_d)} vs CPU "
+             f"{float(loss_c)}")
+    for (path, gc), gd in zip(_with_paths(grads_c), tree_leaves(grads_d)):
+        scale = float(gc.abs().max())
+        err = float((gd.cpu() - gc).abs().max())
+        if scale == 0.0:
+            if err:
+                fail(f"small ReActNet train step: {path} has a gradient on "
+                     f"the card and none on the CPU")
+            continue
+        worst = max(worst, err / scale)
+        if err > TRAIN_TOL * scale:
+            fail(f"small ReActNet train step: gradient {path} card vs CPU "
+                 f"max err {err} > {TRAIN_TOL} x {scale}")
+    return worst
+
+
+def phase_train_reactnet(dev) -> None:
+    """ReActNet-A at its published shapes trains RN_TRAIN_STEPS steps with
+    the STE (the example's optimizer, synthetic 224x224 images of 1000
+    classes, batch 32); then its trained weights are compressed and
+    deployed in all three conv modes with bit-identical logits and
+    RN_EXPECT's launches; then one step of a small model, card vs CPU."""
+    cfg = rn.CONFIG
+    params = rn.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            dev)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    data = SyntheticImages(cfg.num_classes, cfg.image_size, RN_BATCH)
+    t0 = time.monotonic()
+    batches = [{k: torch.from_numpy(v).to(dev)
+                for k, v in data.batch(i).items()}
+               for i in range(RN_TRAIN_STEPS + 1)]
+    data_s = time.monotonic() - t0
+    w3_init = [blk["w3"] >= 0 for blk in params["blocks"]]
+    state = opt.init_state(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms = [], []
+    t0 = time.monotonic()
+    for i in range(RN_TRAIN_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        loss, grads = rn.loss_and_grads(cfg, params, batches[i])
+        new, state, metrics = opt.apply_updates(params, grads, state,
+                                                RN_TRAIN_OC)
+        end.record()
+        _check_train_step(f"ReActNet-A train step {i}", params, new, loss,
+                          grads, metrics["lr"])
+        params = new
+        step_ms.append(start.elapsed_time(end))
+        losses.append(float(loss))
+    wall_s = time.monotonic() - t0
+    peak = torch.cuda.max_memory_allocated()
+    warm = step_ms[2:]
+    flips = sum(int(((blk["w3"] >= 0) != w0).sum())
+                for blk, w0 in zip(params["blocks"], w3_init))
+    n_w3 = sum(blk["w3"].numel() for blk in params["blocks"])
+    print(f"train reactnet-A: {n_params} params, {len(cfg.blocks)} blocks, "
+          f"{cfg.image_size}x{cfg.image_size}, {cfg.num_classes} classes, "
+          f"batch {RN_BATCH}, ste, TF32 off; {RN_TRAIN_STEPS} steps of "
+          f"SyntheticImages (made in {data_s:.2f}s on the host) in "
+          f"{wall_s:.2f}s; losses {[round(x, 4) for x in losses]}")
+    print(f"train reactnet-A: ms/step by CUDA events "
+          f"{[round(x, 2) for x in step_ms]}; warm (steps 2-"
+          f"{RN_TRAIN_STEPS - 1}) mean {sum(warm) / len(warm):.2f} ms; peak "
+          f"memory {peak / 2**30:.2f} GiB (max_memory_allocated); every "
+          f"loss, gradient and leaf finite, leaves within "
+          f"+-{RN_TRAIN_OC.clip_latent}, BN running stats moved by weight "
+          f"decay alone; w3 signs flipped {flips} of {n_w3}")
+
+    from torch.autograd import DeviceType
+
+    def one_step():
+        loss, grads = rn.loss_and_grads(cfg, params, batches[-1])
+        opt.apply_updates(params, grads, state, RN_TRAIN_OC)
+
+    wall_ms, busy, rows, averages = profile_forward(one_step)
+    if not rows:
+        print("profile train step: device time not measured (the profiler "
+              "saw no CUDA kernels)")
+    else:
+        print(f"profile train step (warm): wall {wall_ms:.1f} ms; device "
+              f"busy {busy:.1f} ms = {busy / wall_ms * 100:.1f}% of wall; "
+              f"kernels by device time:")
+        for key, ms, n in sorted(rows, key=lambda r: -r[1])[:8]:
+            print(f"  {ms:9.3f} ms  x{n:<5d} {key[:90]}")
+        ops_rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+                    for e in averages
+                    if e.device_type == DeviceType.CPU
+                    and e.self_device_time_total > 0]
+        print("  by launching op (self device time):")
+        for key, ms, n in sorted(ops_rows, key=lambda r: -r[1])[:8]:
+            print(f"  {ms:9.3f} ms  x{n:<5d} {key[:90]}")
+
+    # --- deploy the trained weights through the kernels -------------------
+    t0 = time.monotonic()
+    comp = rn.prepare_compressed(params, cluster=False)
+    prep_s = time.monotonic() - t0
+    test = data.batch(train_example.TEST_STEP)
+    images = torch.from_numpy(test["images"]).to(dev)
+    logits = {}
+    for mode in ("ste", "packed", "compressed"):
+        for f in RN_KERNELS:
+            f.launches = 0
+        with torch.no_grad():
+            out = rn.forward(dataclasses.replace(cfg, conv_mode=mode), params,
+                             images,
+                             compressed=comp if mode == "compressed" else None)
+        torch.cuda.synchronize()
+        if _rn_counts() != RN_EXPECT[mode]:
+            fail(f"trained ReActNet-A {mode}: launches {_rn_counts()}, "
+                 f"expected {RN_EXPECT[mode]}")
+        if out.shape != (RN_BATCH, cfg.num_classes) or \
+                not torch.isfinite(out).all():
+            fail(f"trained ReActNet-A {mode}: logits {tuple(out.shape)} not "
+                 f"finite")
+        logits[mode] = out
+    for mode in ("packed", "compressed"):
+        if not torch.equal(logits[mode], logits["ste"]):
+            fail(f"trained ReActNet-A: {mode} logits differ from ste by "
+                 f"{float((logits[mode] - logits['ste']).abs().max())}")
+    print(f"trained reactnet-A deploy: prepare_compressed(cluster=False) "
+          f"{prep_s:.2f}s on the host; {_ratios(comp)}; ste, packed and "
+          f"compressed logits bit-identical at batch {RN_BATCH}, launches "
+          f"{RN_EXPECT['compressed']} in compressed")
+    t0 = time.monotonic()
+    w3 = {k: v for k, v in rn.binary_weight_bits(params).items()
+          if k.endswith("w3")}
+    _, rep = compression.compress_model(w3, fp_bits=rn.fp_bits(cfg, params))
+    print(f"trained reactnet-A compress_model (cluster=True) "
+          f"{time.monotonic() - t0:.2f}s on the host: binary ratio "
+          f"{rep.binary_ratio:.4f}x, model ratio {rep.model_ratio:.4f}x "
+          f"(after {RN_TRAIN_STEPS} steps, {flips / n_w3:.2%} of the "
+          f"random init's w3 signs flipped: a few steps do not reach a "
+          f"trained model's skew; the workflow phase trains to it)")
+    worst = _small_train_step_vs_cpu(dev)
+    print(f"small reactnet train step: (width 32, 4 blocks, 32x32, 8 "
+          f"images, exact params) card vs CPU loss and every gradient leaf "
+          f"within {worst:.3e} <= {TRAIN_TOL} of the leaf's largest element")
+
+
+def phase_paper_workflow(dev) -> None:
+    """``examples/torch_train_reactnet.py``'s workflow on the card: train
+    PAPER_STEPS steps, deploy through the kernels, report, checkpoint
+    compressed; held to ``tests/test_system.py::TestPaperWorkflow``'s
+    assertions, and the checkpoint restored and redeployed."""
+    with tempfile.TemporaryDirectory() as tmp:
+        for f in RN_KERNELS:
+            f.launches = 0
+        t0 = time.monotonic()
+        res = train_example.workflow(
+            steps=PAPER_STEPS, batch=RN_BATCH, device=dev, ckpt_dir=tmp,
+            log=lambda line: print(f"paper workflow: {line}"))
+        wall_s = time.monotonic() - t0
+        cfg, params, logits = res["cfg"], res["params"], res["logits"]
+        # the deploy: one compressed forward without clustering, one with;
+        # each kernel launches a fixed number of times a block
+        want = {k: v // 13 * len(cfg.blocks) * 2
+                for k, v in RN_EXPECT["compressed"].items()}
+        if _rn_counts() != want:
+            fail(f"paper workflow: launches {_rn_counts()}, expected {want}")
+        losses, rep = res["losses"], res["report"]
+        if not losses[-1] < 0.5 * losses[0]:
+            fail(f"paper workflow: loss {losses[0]} -> {losses[-1]} did not "
+                 f"halve")
+        top64 = float(np.mean(list(res["top64"].values())))
+        if not top64 > 0.3:
+            fail(f"paper workflow: mean top-64 share {top64} of the trained "
+                 f"w3 not above 0.3")
+        if not torch.equal(logits["compressed"], logits["ste"]):
+            fail("paper workflow: compressed logits differ from float-sign")
+        preds = {k: v.argmax(-1) for k, v in logits.items()}
+        agree = float((preds["clustered"] == preds["ste"]).float().mean())
+        if not agree > 0.8:
+            fail(f"paper workflow: clustered predictions agree {agree}")
+        if not rep.binary_ratio > 1.1:
+            fail(f"paper workflow: binary ratio {rep.binary_ratio}")
+        w3 = {k: v for k, v in rn.binary_weight_bits(params).items()
+              if k.endswith("w3")}
+        seqs = [bitpack.kernel_to_sequences(v) for v in w3.values()]
+        full = sum(huffman.full_huffman_avg_bits(
+            frequency.sequence_histogram(s)) * s.size for s in seqs) / sum(
+            s.size for s in seqs)
+        _, plain = compression.compress_model(w3, fp_bits=0, cluster=False)
+        flips = max(clustering.max_weight_flips(ct.replacement)
+                    for ct in res["compressed"].values())
+        if flips > 1:
+            fail(f"paper workflow: clustering flips {flips} bits of a "
+                 f"sequence")
+        acc = res["accuracy"]
+        print(f"paper workflow: {PAPER_STEPS} steps + deploy + report + "
+              f"checkpoint in {wall_s:.2f}s (host clock); loss "
+              f"{losses[0]:.4f} -> {losses[-1]:.4f}; accuracy float-sign "
+              f"{acc['ste']:.4f} = compressed {acc['compressed']:.4f} "
+              f"(logits bit-identical), clustered {acc['clustered']:.4f}, "
+              f"clustered predictions agree {agree:.4f}; mean top-64 share "
+              f"{top64:.4f}; binary ratio {rep.binary_ratio:.4f}x "
+              f"(clustered), {plain.binary_ratio:.4f}x (unclustered), model "
+              f"ratio {rep.model_ratio:.4f}x; avg bits a sequence: full "
+              f"Huffman {full:.4f}, 4-node {9 / plain.binary_ratio:.4f}, "
+              f"4-node clustered {9 / rep.binary_ratio:.4f}; max weight "
+              f"flips {flips}; deploy launches {want}")
+        restored, step = ckpt.restore(tmp, {"params": params}, device=dev)
+    if step != PAPER_STEPS:
+        fail(f"paper workflow: checkpoint step {step}")
+    rparams = restored["params"]
+    for i, (blk, rblk) in enumerate(zip(params["blocks"],
+                                        rparams["blocks"])):
+        w = blk["w3"]
+        want = torch.where(w >= 0, 1.0, -1.0) * w.abs().mean(
+            dim=(1, 2, 3), keepdim=True)
+        if not torch.allclose(rblk["w3"], want, rtol=1e-6, atol=0.0):
+            fail(f"paper workflow: restored block{i}/w3 is not sign x "
+                 f"mean|w|")
+    images = torch.from_numpy(
+        res["data"].batch(train_example.TEST_STEP)["images"]).to(dev)
+    cfg_c = dataclasses.replace(cfg, conv_mode="compressed")
+    with torch.no_grad():
+        out = rn.forward(cfg_c, rparams, images,
+                         compressed=rn.prepare_compressed(rparams,
+                                                          cluster=False))
+    if not torch.equal(out.argmax(-1), preds["compressed"]):
+        fail("paper workflow: the restored checkpoint's compressed forward "
+             "changes predictions")
+    print(f"paper workflow: compressed checkpoint (step {step}) restored on "
+          f"the card; every w3 is sign x mean|w|; its compressed forward "
+          f"gives the trained predictions (max |logit diff| "
+          f"{float((out - logits['compressed']).abs().max()):.3e})")
+
 
 # ---------------------------------------------------------------------------
 # phi3-medium-14b, h2o-danube-1.8b, gemma2-2b, mixtral-8x22b
@@ -3117,6 +3420,10 @@ def main() -> None:
     launches.update(timed("reactnet", phase_reactnet, dev, params, images,
                           comp))
     timed("small reactnet", phase_small_reactnet, dev)
+    del params, images, comp
+    torch.cuda.empty_cache()
+    timed("train reactnet", phase_train_reactnet, dev)
+    timed("paper workflow", phase_paper_workflow, dev)
     for k in kernels:
         k["launches"] = launches[k["name"]]
     print(f"total {time.monotonic() - t_start:.1f}s; gpu: {smi}")

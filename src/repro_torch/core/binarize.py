@@ -38,3 +38,13 @@ def binarize_weights(w: torch.Tensor, scale: bool = True) -> torch.Tensor:
         return wb
     alpha = w.detach().abs().mean(dim=tuple(range(1, w.ndim)), keepdim=True)
     return wb * alpha
+
+
+def binarize_activations(x: torch.Tensor) -> torch.Tensor:
+    """RSign without the learned shift (the shift lives in the model layer)."""
+    return ste_sign(x)
+
+
+def weight_bits(w: torch.Tensor) -> torch.Tensor:
+    """{0,1} uint8 view of latent weights (1 <-> +1), for offline compression."""
+    return (w >= 0).to(torch.uint8)

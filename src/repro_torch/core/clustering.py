@@ -55,3 +55,10 @@ def apply_clustering(
         hist = sequence_histogram(seqs)
     repl = build_replacement_map(hist, m, n)
     return repl[np.asarray(seqs, dtype=np.int64)], repl
+
+
+def max_weight_flips(repl: np.ndarray) -> int:
+    """Worst-case bit flips introduced per sequence (invariant: <= 1)."""
+    v = np.arange(NUM_SEQUENCES, dtype=np.uint16)
+    xor = v ^ repl
+    return int(max(bin(int(x)).count("1") for x in xor))

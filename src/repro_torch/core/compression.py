@@ -1,5 +1,6 @@
-"""Binary GEMM-weight compression (copy of the GEMM half of
-``repro.core.compression``, with the fused-kernel block layout).
+"""Binary-kernel compression (copy of ``repro.core.compression``: 3x3
+conv and GEMM weights, the fused-kernel block layout and the model-level
+report; paper §III).
 
 Produces two layouts from one node assignment:
 
@@ -52,18 +53,24 @@ class TiledStream:
     def w(self) -> int:
         return self.words.shape[1]
 
+    def stored_bits(self) -> int:
+        return int(self.words.size * 32)
+
 
 @dataclasses.dataclass
 class CompressedTensor:
-    """A compressed binary GEMM weight."""
+    """A compressed binary weight tensor (one conv kernel or GEMM weight).
+
+    ``tiled`` is None when compressed with ``tiled=False`` (storage-only
+    stream layout)."""
 
     assign: huffman.NodeAssignment
     stream_words: np.ndarray       # contiguous varlen stream (uint32)
     stream_bits: int
-    tiled: TiledStream
-    seq_shape: tuple[int, ...]     # shape of the sequence array, (N, G)
+    tiled: TiledStream | None
+    seq_shape: tuple[int, ...]     # shape of the sequence array, e.g. (Cout, Cin)
     orig_shape: tuple[int, ...]    # shape of the original bit tensor
-    kind: str                      # "gemm"
+    kind: str                      # "conv3x3" | "gemm"
     replacement: np.ndarray | None # clustering map if clustering was applied
 
     @property
@@ -73,6 +80,10 @@ class CompressedTensor:
     def ratio_stream(self) -> float:
         """Paper Table V ratio: 9-bit baseline vs varlen stream."""
         return self.n_seqs * SEQ_BITS / self.stream_bits
+
+    def ratio_tiled(self) -> float:
+        """Ratio of the tiled layout (includes substream padding)."""
+        return self.n_seqs * SEQ_BITS / self.tiled.stored_bits()
 
     def decode_tables(self) -> np.ndarray:
         return self.assign.decode_tables_flat()
@@ -123,6 +134,7 @@ def compress_sequences(
     n: int = clustering.DEFAULT_N,
     substreams: int = DEFAULT_SUBSTREAMS,
     codes_per_sub: int = DEFAULT_CODES_PER_SUB,
+    tiled: bool = True,
 ) -> CompressedTensor:
     seqs = np.asarray(seqs, dtype=np.uint16)
     repl = None
@@ -131,7 +143,8 @@ def compress_sequences(
     hist = frequency.sequence_histogram(seqs)
     assign = huffman.assign_nodes(hist)
     stream_words, stream_bits = huffman.encode_stream(seqs, assign)
-    tiled = tile_stream(seqs, assign, s=substreams, c=codes_per_sub)
+    tiled = tile_stream(seqs, assign, s=substreams, c=codes_per_sub) \
+        if tiled else None
     return CompressedTensor(
         assign=assign,
         stream_words=stream_words,
@@ -143,6 +156,17 @@ def compress_sequences(
         replacement=repl,
     )
 
+
+def compress_conv3x3(w_bits: np.ndarray, **kw) -> CompressedTensor:
+    """(Cout, Cin, 3, 3) {0,1} -> CompressedTensor."""
+    seqs = bitpack.kernel_to_sequences(w_bits)
+    return compress_sequences(seqs, w_bits.shape, "conv3x3", **kw)
+
+
+def compress_gemm(w_bits: np.ndarray, **kw) -> CompressedTensor:
+    """(N, K) {0,1} -> CompressedTensor (9-bit grouping along K)."""
+    seqs = bitpack.gemm_to_sequences(w_bits)
+    return compress_sequences(seqs, w_bits.shape, "gemm", **kw)
 
 
 @dataclasses.dataclass
@@ -215,3 +239,67 @@ def decompress_fused(fc: FusedCompressed) -> np.ndarray:
     return bitpack.sequences_to_gemm(
         np.ascontiguousarray(seqs[:fc.n_true, :g]).astype(np.uint16),
         fc.k_true)
+
+
+def decompress(ct: CompressedTensor) -> np.ndarray:
+    """Stream-decode back to the (possibly clustered) bit tensor."""
+    seqs = huffman.decode_stream(
+        ct.stream_words, ct.stream_bits, ct.assign, count=ct.n_seqs
+    ).reshape(ct.seq_shape)
+    if ct.kind == "conv3x3":
+        return bitpack.sequences_to_kernel(seqs)
+    return bitpack.sequences_to_gemm(seqs, ct.orig_shape[-1])
+
+
+# ---------------------------------------------------------------------------
+# model-level compression (paper's 1.2x whole-model figure)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class ModelCompressionReport:
+    per_tensor: dict[str, float]        # name -> stream ratio
+    binary_bits_before: int
+    binary_bits_after: int
+    fp_bits: int                        # uncompressed (non-binary) parameters
+
+    @property
+    def binary_ratio(self) -> float:
+        return self.binary_bits_before / max(self.binary_bits_after, 1)
+
+    @property
+    def model_ratio(self) -> float:
+        before = self.binary_bits_before + self.fp_bits
+        after = self.binary_bits_after + self.fp_bits
+        return before / max(after, 1)
+
+
+def compress_model(
+    binary_tensors: dict[str, np.ndarray],
+    fp_bits: int,
+    kinds: dict[str, str] | None = None,
+    cluster: bool = True,
+) -> tuple[dict[str, CompressedTensor], ModelCompressionReport]:
+    """Compress every binarized weight tensor of a model.
+
+    ``binary_tensors``: name -> {0,1} bit tensor (4-d conv or 2-d GEMM).
+    ``fp_bits``: total bits of the model's full-precision remainder
+    (8-bit input/output layers, BN, PReLU — paper Table I).
+    """
+    out: dict[str, CompressedTensor] = {}
+    ratios: dict[str, float] = {}
+    before = after = 0
+    for name, bits in binary_tensors.items():
+        kind = (kinds or {}).get(name, "conv3x3" if bits.ndim == 4 else "gemm")
+        ct = (compress_conv3x3 if kind == "conv3x3" else compress_gemm)(
+            bits, cluster=cluster)
+        out[name] = ct
+        ratios[name] = ct.ratio_stream()
+        before += ct.n_seqs * SEQ_BITS
+        after += ct.stream_bits
+    report = ModelCompressionReport(
+        per_tensor=ratios,
+        binary_bits_before=before,
+        binary_bits_after=after,
+        fp_bits=fp_bits,
+    )
+    return out, report

@@ -1,7 +1,8 @@
 """Simplified 4-node Huffman coder of bit sequences (copy of
 ``repro.core.huffman``, paper §III-B).
 
-Node prefixes are ``0 / 10 / 110 / 111`` and node index widths ``5 / 6 /
+:func:`full_huffman_lengths` is a textbook Huffman build, the compression
+bound the simplified tree is traded against.  Node prefixes are ``0 / 10 / 110 / 111`` and node index widths ``5 / 6 /
 6 / 9``, giving code lengths 6 / 8 / 9 / 12.  The last node is the escape
 node: after prefix ``111`` the raw 9-bit sequence follows literally.
 Encoded streams are MSB-first: the first code bit is bit 31 of word 0.
@@ -10,6 +11,7 @@ Encoded streams are MSB-first: the first code bit is bit 31 of word 0.
 from __future__ import annotations
 
 import dataclasses
+import heapq
 
 import numpy as np
 
@@ -22,6 +24,32 @@ INDEX_BITS = (5, 6, 6, SEQ_BITS)                 # escape carries raw 9 bits
 CODE_LEN = tuple(p + i for p, i in zip(PREFIX_LEN, INDEX_BITS))  # 6, 8, 9, 12
 PREFIX_VAL = (0b0, 0b10, 0b110, 0b111)
 MAX_CODE_LEN = CODE_LEN[-1]                      # 12
+
+
+def full_huffman_lengths(hist: np.ndarray) -> np.ndarray:
+    """Optimal Huffman code lengths per symbol ((512,) int32; 0 = unused)."""
+    heap = [(int(c), i, (i,)) for i, c in enumerate(hist) if c > 0]
+    if len(heap) == 1:
+        lengths = np.zeros(NUM_SEQUENCES, dtype=np.int32)
+        lengths[heap[0][1]] = 1
+        return lengths
+    heapq.heapify(heap)
+    lengths = np.zeros(NUM_SEQUENCES, dtype=np.int32)
+    tick = NUM_SEQUENCES  # tie-break counter keeps the heap total-ordered
+    while len(heap) > 1:
+        ca, _, sa = heapq.heappop(heap)
+        cb, _, sb = heapq.heappop(heap)
+        for s in sa + sb:
+            lengths[s] += 1
+        heapq.heappush(heap, (ca + cb, tick, sa + sb))
+        tick += 1
+    return lengths
+
+
+def full_huffman_avg_bits(hist: np.ndarray) -> float:
+    lengths = full_huffman_lengths(hist)
+    total = hist.sum()
+    return float((hist * lengths).sum() / total) if total else 0.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,6 +80,19 @@ class NodeAssignment:
             return 0.0
         lens = np.asarray(CODE_LEN)[self.node_of]
         return float((hist * lens).sum() / total)
+
+    def compression_ratio(self, hist: np.ndarray) -> float:
+        """vs. the 9-bit channel-packed baseline (paper Table V)."""
+        avg = self.avg_bits(hist)
+        return SEQ_BITS / avg if avg else 1.0
+
+    def node_shares(self, hist: np.ndarray) -> np.ndarray:
+        """Aggregate frequency share per node ((4,) float)."""
+        total = hist.sum()
+        shares = np.zeros(4)
+        for n in range(4):
+            shares[n] = hist[self.node_of == n].sum() / max(total, 1)
+        return shares
 
     def decode_tables_flat(self) -> np.ndarray:
         """(160,) int32 concatenated tables for the decode kernels:

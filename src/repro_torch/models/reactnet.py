@@ -1,23 +1,27 @@
 """ReActNet (Liu et al., ECCV 2020) — the paper's baseline BNN (port of
-the inference half of ``repro.models.reactnet``).
+``repro.models.reactnet``).
 
 MobileNetV1-shaped binary network: a full-precision stem conv, 13 basic
 blocks (binary 3x3 + binary 1x1, each wrapped with RSign / RPReLU and
 BatchNorm-style normalisation), global pooling and an FC head.
 
 Each binary conv runs in one of three modes:
-  * "ste"        — float sign path (the integers as float convolutions);
+  * "ste"        — float sign path with the straight-through estimator
+                   (training; the integers as float GEMMs);
   * "packed"     — xnor/popcount kernel on packed bits;
   * "compressed" — Huffman-compressed 3x3 weights, decode fused into the
                    conv's GEMM kernel (the paper's contribution end to end).
 With ±1 operands every binary product is an exact integer in float32, so
 the three modes give the same logits.
 
+``train=True`` normalises with the batch's statistics (population
+variance), as the reference does; the running ``mean``/``var`` leaves are
+never updated by the forward.  Training runs in ``ste`` mode: gradients
+reach the latent weights through ``ste_sign`` (:func:`loss_and_grads`).
+
 Layouts are the reference's: images and activations NHWC, weights
 (Cout, Cin, 3, 3), params a nested dict/list tree with the reference's
 paths, so a JAX tree carries across leaf for leaf (:func:`params_from_numpy`).
-Inference only (``train=False``): batch-statistics BN, the loss and the
-optimizer wait for the training slice.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ from repro_torch import resolve_device
 from repro_torch.core.binarize import ste_sign
 from repro_torch.kernels import ops
 from repro_torch.tree import params_from_numpy  # noqa: F401
+from repro_torch.tree import tree_leaves, tree_unflatten
 
 CONV_MODES = ("ste", "packed", "compressed")
 
@@ -64,9 +69,14 @@ def _bn_init(c, device):
             "var": torch.ones(c, device=device)}
 
 
-def _bn(p, x):
-    inv = torch.rsqrt(p["var"] + 1e-5)
-    return (x - p["mean"]) * inv * p["scale"] + p["bias"]
+def _bn(p, x, train: bool):
+    if train:
+        mean = x.mean(dim=(0, 1, 2))
+        var = x.var(dim=(0, 1, 2), correction=0)
+    else:
+        mean, var = p["mean"], p["var"]
+    inv = torch.rsqrt(var + 1e-5)
+    return (x - mean) * inv * p["scale"] + p["bias"]
 
 
 def _rsign(p, x):
@@ -165,12 +175,13 @@ def init_params(cfg: ReActNetConfig, generator: torch.Generator,
     return params
 
 
-def _block_apply(blk, x, mult: int, stride: int, mode: str, compressed=None):
+def _block_apply(blk, x, mult: int, stride: int, mode: str, train: bool,
+                 compressed=None):
     c_in = x.shape[-1]
     # --- 3x3 binary conv sub-layer (the paper's compression target) -------
     xb = _rsign(blk["rsign1"], x)
     y = _bn(blk["bn1"], _binary_conv_apply(blk["w3"], xb, stride, mode,
-                                           compressed))
+                                           compressed), train)
     short = _avg_pool2(x) if stride == 2 else x
     y = _rprelu(blk["rprelu1"], y + short)
 
@@ -183,7 +194,7 @@ def _block_apply(blk, x, mult: int, stride: int, mode: str, compressed=None):
         z = yb.reshape(-1, c_in) @ ste_sign(w1).T
     else:
         z = ops.binary_matmul(yb.reshape(-1, c_in), w1)
-    z = _bn(blk["bn2"], z.reshape(n, h, w_, -1) * alpha)
+    z = _bn(blk["bn2"], z.reshape(n, h, w_, -1) * alpha, train)
     if z.shape[-1] == y.shape[-1]:
         z = z + y
     else:                                            # channel duplication
@@ -196,23 +207,48 @@ def forward(cfg: ReActNetConfig, params, images, *, train: bool = False,
     """images (N, H, W, 3) -> logits (N, num_classes).
 
     ``compressed`` is :func:`prepare_compressed`'s list, needed by
-    ``conv_mode="compressed"``."""
-    if train:
-        raise NotImplementedError("training (batch-statistics BN) waits for "
-                                  "the training slice of the port")
+    ``conv_mode="compressed"``; ``train`` takes BN statistics from the
+    batch."""
     if cfg.conv_mode not in CONV_MODES:
         raise ValueError(f"conv_mode must be one of {CONV_MODES}, got "
                          f"{cfg.conv_mode!r}")
     if cfg.conv_mode == "compressed" and compressed is None:
         raise ValueError("conv_mode='compressed' needs prepare_compressed's "
                          "operands")
-    x = _bn(params["stem"]["bn"], _stem(params["stem"]["w"], images))
+    x = _bn(params["stem"]["bn"], _stem(params["stem"]["w"], images), train)
     for i, ((mult, stride), blk) in enumerate(zip(cfg.blocks,
                                                   params["blocks"])):
         comp = compressed[i] if compressed is not None else None
-        x = _block_apply(blk, x, mult, stride, cfg.conv_mode, comp)
+        x = _block_apply(blk, x, mult, stride, cfg.conv_mode, train, comp)
     x = x.mean(dim=(1, 2))
     return x @ params["head"]["w"] + params["head"]["b"]
+
+
+def loss_fn(cfg, params, batch, *, train: bool = True):
+    """Mean softmax cross-entropy of ``batch["images"]`` against
+    ``batch["labels"]`` (logsumexp minus the gold logit)."""
+    logits = forward(cfg, params, batch["images"], train=train)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, 1,
+                        batch["labels"].to(torch.int64)[:, None])[:, 0]
+    return torch.mean(logz - gold)
+
+
+def loss_and_grads(cfg, params, batch, *, train: bool = True):
+    """(loss, grads): the reference's ``jax.value_and_grad(loss_fn)``.
+
+    ``grads`` has the params' tree; a leaf the loss does not read (the BN
+    running ``mean``/``var`` in train mode) gets zeros, as under jax.
+    Only ``conv_mode="ste"`` is differentiable: the kernels of the other
+    modes have no backward."""
+    if cfg.conv_mode != "ste":
+        raise ValueError(f"gradients need conv_mode='ste', got "
+                         f"{cfg.conv_mode!r}")
+    leaves = [t.detach().requires_grad_(True) for t in tree_leaves(params)]
+    loss = loss_fn(cfg, tree_unflatten(params, leaves), batch, train=train)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                materialize_grads=True)
+    return loss.detach(), tree_unflatten(params, grads)
 
 
 # ---------------------------------------------------------------------------

@@ -35,6 +35,13 @@ def tree_leaves(tree) -> list:
     return out
 
 
+def tree_unflatten(like, leaves) -> dict:
+    """``like``'s tree with ``leaves`` (in :func:`tree_leaves` order) at
+    its leaves."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), like)
+
+
 def params_from_numpy(tree, device) -> dict:
     """The reference's ``init_params`` tree (leaves as numpy arrays) ->
     the port's params on ``device``, leaf for leaf.  bfloat16 leaves

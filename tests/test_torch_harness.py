@@ -95,6 +95,8 @@ _PORT_MODULES = {
     "repro_torch.configs.gemma2_2b", "repro_torch.configs.mixtral_8x22b",
     "repro_torch.runtime.prefix_index", "repro_torch.runtime.drafter",
     "repro_torch.runtime.autotune", "repro_torch.runtime.telemetry",
+    "repro_torch.data.pipeline", "repro_torch.train.optimizer",
+    "repro_torch.ckpt.checkpoint",
 }
 
 

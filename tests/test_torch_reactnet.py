@@ -1,5 +1,5 @@
-"""The port's ReActNet inference path and ``WeightStore.fused_operands``
-against the JAX reference.
+"""The port's ReActNet forward (inference, and train mode's batch
+statistics) and ``WeightStore.fused_operands`` against the JAX reference.
 
 The reference's ``packed`` and ``compressed`` conv modes run Pallas
 kernels that do not run on the installed jax (ROADMAP "Reference
@@ -164,10 +164,14 @@ def test_weight_bits_and_prepare_match_reference(reactnet):
 
 
 def test_forward_rejects_what_it_does_not_run(reactnet):
-    _, tp, imgs, _ = reactnet
+    jp, tp, imgs, _ = reactnet
     x = torch.from_numpy(imgs)
-    with pytest.raises(NotImplementedError, match="training"):
-        rn.forward(_port_cfg(JAX_CFG), tp, x, train=True)
+    # train=True (batch-statistics BN) runs, as the reference's does
+    want = np.asarray(jax.jit(lambda p, i: jrn.forward(
+        JAX_CFG, p, i, train=True))(jax.tree_util.tree_map(jnp.asarray, jp),
+                                    jnp.asarray(imgs)))
+    got = rn.forward(_port_cfg(JAX_CFG), tp, x, train=True).numpy()
+    np.testing.assert_allclose(got, want, rtol=LOGIT_TOL, atol=LOGIT_TOL)
     with pytest.raises(ValueError, match="conv_mode"):
         rn.forward(_port_cfg(JAX_CFG, conv_mode="dense"), tp, x)
     with pytest.raises(ValueError, match="prepare_compressed"):
