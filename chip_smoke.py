@@ -12,7 +12,7 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` with nvcc
   and int8 codec pools; split TF32 on tensor cores; their registers,
   spills and shared memory, TF32 and f32 bounds, event and device times
   beside SDPA's) against their plain PyTorch versions at serving shapes,
-  serves minitron-8b at its published widths (depth cut to 2 layers)
+  serves minitron-8b at its published widths (depth cut to 1 layer)
   through ``ServeEngine`` and ``Scheduler`` on the ``cuda_paged``
   backend, with fp pools and again with ``kv_codec="cluster"`` (int8 code
   pools decoded in the kernel), and checks that the kernels were launched
@@ -79,6 +79,18 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` with nvcc
   prefix pages against one that computed them, within the ulp floor of
   the logits check, which a planted one-row page shift must break; the
   small models give the CPU's tokens and counters on ``SHARED_PATHS``;
+* mamba2-780m, recurrentgemma-2b, paligemma-3b and whisper-large-v3:
+  holds the GQA kernel against its plain version at paligemma's decode
+  shape (8 query heads over one KV head of 256, Q=1, bf16 and codec
+  pools), serves each at its published widths (depth cut:
+  ``STATE_ARCH_LAYERS``) asked for the main path and downgraded as the
+  reference downgrades it (the recurrent archs and whisper to the
+  gathered backend, paligemma and whisper to monolithic prefill; the
+  notes printed), checks the Huffman decode's launches and every
+  compressed matrix shape bit for bit, paligemma's attention launches
+  against its decode steps, a second run's tokens and n-gram
+  speculation's on the recurrent archs, profiles one warm batch, and
+  serves each tiny config on card and CPU to the same tokens;
 * the paper's BNN: times the int8 and binary mma.sync probe, prints the
   fused and contraction kernels' registers, spills, shared memory and
   launch plans, holds the binarize-pack ((M, K) rows and 3x3 patches
@@ -155,9 +167,8 @@ from repro_torch.kernels.paged_attention import (  # noqa: E402
     decode_pool, gqa_kernel_info, mla_kernel_info, paged_decode_attention,
     paged_mixed_attention, paged_mixed_attention_plain, sm_count)
 from repro_torch.launch.serve import (  # noqa: E402
-    TOO_DEEP_FOR_ONE_CARD, codec_report, cut_depth, tiny_config)
+    TOO_DEEP_FOR_ONE_CARD, codec_report, cut_depth, init_params, tiny_config)
 from repro_torch.models import reactnet as rn  # noqa: E402
-from repro_torch.models.transformer import init_params  # noqa: E402
 from repro_torch.runtime import (  # noqa: E402
     NULL_TELEMETRY, Request, Scheduler, ServeEngine, ServeMetrics, SlotPool,
     Telemetry, parse_prom, recommend_store_capacity)
@@ -203,8 +214,9 @@ LOGIT_ULP_FACTOR = 4
 ATTN_SOFTCAP = 4.0               # near the score scale, so a kernel that
 #                                  skipped the cap would fail the check
 
-# serve phase: minitron-8b widths, depth cut for host-side compression
-SERVE_LAYERS = 2
+# serve phase: minitron-8b widths, depth cut to one block for host-side
+# compression and the script's time limit (its serve phases run many paths)
+SERVE_LAYERS = 1
 SERVE_BATCH, SERVE_CHUNK, SERVE_PAGE, SERVE_GEN = 4, 64, 16, 16
 SERVE_PROMPTS = np.linspace(32, 256, 8).astype(int)
 
@@ -233,6 +245,31 @@ ARCH_LAYERS = {
     "mixtral-8x22b": (2, "does not fit one card: "
                          + TOO_DEEP_FOR_ONE_CARD["mixtral-8x22b"]),
 }
+# the archs with recurrent state or a multimodal prefix, served beside the
+# others: depth cut to these many layers (published widths), and why
+STATE_ARCH_LAYERS = {
+    "mamba2-780m": (48, "full depth: about 1.6 GB of bf16 weights and no "
+                        "dense MLP to register"),
+    "recurrentgemma-2b": (5, "one (rglru, rglru, attn_local) repeat and its "
+                             "two suffix rglru blocks run every module; "
+                             "registration compresses each 2560x7680 MLP "
+                             "matrix on the host, 78 at full depth"),
+    "paligemma-3b": (2, "registration compresses each 2048x16384 MLP "
+                        "matrix on the host, 54 at full depth"),
+    "whisper-large-v3": (2, "2 encoder + 2 decoder layers run every module; "
+                            "registration compresses each 1280x5120 MLP "
+                            "matrix on the host, 128 at full depth"),
+}
+# the paths their tiny configs serve on card and CPU: what each asks for
+# that the arch lacks is downgraded on both devices alike (the codec is
+# left out: the encoder-decoder has no codec path, in the reference too)
+STATE_SMALL_PATHS = (
+    dict(attn_backend="gathered"),
+    dict(prefill_chunk=3, kv_page_size=4),
+    dict(mode="wave", attn_backend="gathered"),
+    dict(attn_backend="gathered", kv_page_size=4, speculate="ngram"),
+)
+
 # the window the lane checks cut to: shorter than the serve phases' slots
 # (up to 272 positions), so a windowed block's K/V are rolling lanes
 WINDOW_CUT = 64
@@ -355,8 +392,10 @@ def phase_register(dev):
           f"{cfg.num_heads}/{cfg.num_kv_heads}, head_dim {cfg.head_dim}, "
           f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.dtype}); reason: "
           f"registration binarises and Huffman-compresses every "
-          f"{cfg.d_model}x{cfg.d_ff} MLP matrix on the host (~10 s each), "
-          f"and full depth has {2 * 32} of them")
+          f"{cfg.d_model}x{cfg.d_ff} MLP matrix on the host (~7 s each), "
+          f"and full depth has {3 * 32} of them; one block runs every "
+          f"module, and the serve phases that follow run many paths "
+          f"within the script's time limit")
     gen = torch.Generator(device=dev).manual_seed(0)
     params = init_params(cfg, gen, dev)
     up0 = params["scan"]["b0"]["mlp"]["up"][0].float().cpu().numpy()
@@ -816,13 +855,15 @@ def phase_serve_codec(engine, prompts, fp_launches, fp_warm,
     return launches
 
 
-def profile_serve(engine, prompts, **kw) -> dict:
+def profile_serve(engine, prompts, cpu_ops: bool = True, **kw) -> dict:
     """Where a warm serve run's time goes: one more run of the same
     requests (``_serve``'s path, ``kw`` over its defaults) under
     torch.profiler -> device busy share of the wall time and the kernels
     by device time; plus the host cost of one warm ``materialize`` (every
     tile a cache hit).  Returns the run's warm ms/step, device busy ms and
-    paged-attention kernel ms."""
+    paged-attention kernel ms.  ``cpu_ops=False`` records the
+    device's kernels alone (a run of tens of thousands of launches then
+    reports in seconds, not minutes)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     t0 = time.monotonic()
@@ -830,8 +871,8 @@ def profile_serve(engine, prompts, **kw) -> dict:
     mat_ms = (time.monotonic() - t0) * 1e3
     hits0 = engine.cache.hits
     engine.metrics = ServeMetrics()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU] * cpu_ops
+                 + [ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
         _serve(engine, prompts, **kw)
         wall_ms = (time.monotonic() - t0) * 1e3
@@ -1312,7 +1353,8 @@ SHARED_COUNTERS = ("prefix_hits", "prefix_tokens_reused",
                    "decode_steps")
 
 
-def phase_small_reference(dev, cfg, label, shared: bool = False) -> None:
+def phase_small_reference(dev, cfg, label, shared: bool = False,
+                          paths=SMALL_PATHS) -> None:
     """A small model served on the card gives the CPU's tokens, on every
     path of ``SMALL_PATHS`` (and with ``shared``, on its own requests, of
     ``SHARED_PATHS``, with equal prefix and speculation counters).  Its dense MLP weights
@@ -1335,7 +1377,8 @@ def phase_small_reference(dev, cfg, label, shared: bool = False) -> None:
                                                  (6, 3))]
     shared_reqs += [(np.tile(rng.integers(0, cfg.vocab_size, 3), 4), 12)
                     for _ in range(2)]
-    paths = SMALL_PATHS + SHARED_PATHS if shared else SMALL_PATHS
+    small = paths
+    paths = small + SHARED_PATHS if shared else small
     draft = unit(init_params(draft_config(cfg.vocab_size),
                              torch.Generator().manual_seed(4), "cpu"))
     make = sched_mod.make_drafter
@@ -1367,7 +1410,7 @@ def phase_small_reference(dev, cfg, label, shared: bool = False) -> None:
         sched_mod.make_drafter = make
     print(f"small reference: {label} ({cfg.d_model} wide, f32) serves "
           f"{len(reqs)} requests to identical tokens on cuda and cpu on "
-          f"{len(SMALL_PATHS)} paths: {list(SMALL_PATHS)}")
+          f"{len(small)} paths: {list(small)}")
     if shared:
         print(f"small reference: {label} serves {len(shared_reqs)} requests "
               f"(four extending one 16-token prefix, two repeating a "
@@ -2774,14 +2817,19 @@ def _kernel_blocks(pool) -> int:
     return sum(n) // 2          # a GQA block's two leaves, k and v
 
 
-def _arch_engine(arch, dev):
-    """``arch`` at its published widths, depth cut to ``ARCH_LAYERS``,
+def _arch_engine(arch, dev, table=ARCH_LAYERS):
+    """``arch`` at its published widths, depth cut to ``table``'s layers,
     random weights from seed 0, registered in a ServeEngine (compressed
     when it has dense MLPs)."""
-    layers, why = ARCH_LAYERS[arch]
+    layers, why = table[arch]
     full = get_config(arch)
     cfg = cut_depth(full, layers)
-    kinds = list(cfg.scan_pattern) * cfg.scan_repeats
+    kinds = list(cfg.prefix_kinds) + list(cfg.scan_pattern) \
+        * cfg.scan_repeats + list(cfg.suffix_kinds)
+    if cfg.encoder_layers:
+        kinds = [f"{cfg.encoder_layers} bidir encoder"] + kinds
+    if len(set(kinds)) == 1 and len(kinds) > 4:
+        kinds = [f"{len(kinds)} x {kinds[0]}"]
     mlp = (f"{cfg.num_experts} experts top-{cfg.top_k}, moe_d_ff "
            f"{cfg.moe_d_ff}" if cfg.num_experts else f"d_ff {cfg.d_ff} "
            f"({cfg.mlp_act})")
@@ -2790,7 +2838,8 @@ def _arch_engine(arch, dev):
           f"{cfg.d_model}, heads {cfg.num_heads}/{cfg.num_kv_heads}, "
           f"head_dim {cfg.head_dim}, {mlp}, vocab {cfg.vocab_size}, window "
           f"{cfg.window}, softcaps {cfg.attn_logit_softcap}/"
-          f"{cfg.final_logit_softcap}, {cfg.dtype}); reason: {why}")
+          f"{cfg.final_logit_softcap}, {cfg.dtype}{_state_widths(cfg)}); "
+          f"reason: {why}")
     t0 = time.monotonic()
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                          dev)
@@ -2810,6 +2859,21 @@ def _arch_engine(arch, dev):
     else:
         print(f"registration: {arch} has no dense MLP; served uncompressed")
     return engine
+
+
+def _state_widths(cfg) -> str:
+    """The published widths of an arch's recurrent or multimodal parts."""
+    if cfg.family == "ssm":
+        return (f", ssm heads {cfg.ssm_heads} x {cfg.ssm_head_dim}, state "
+                f"{cfg.ssm_state}, chunk {cfg.ssm_chunk}, expand "
+                f"{cfg.expand}")
+    if cfg.family == "hybrid":
+        return f", lru_width {cfg.lru_width}"
+    if cfg.family == "vlm":
+        return f", {cfg.num_vision_tokens} vision tokens"
+    if cfg.family == "audio":
+        return f", encoder_seq {cfg.encoder_seq}"
+    return ""
 
 
 def _serve_counted(engine, prompts, label, **kw):
@@ -2909,6 +2973,190 @@ def phase_archs(dev, kernels: dict, launches: dict) -> None:
                                 label=f"serve {arch} window {WINDOW_CUT}")
         torch.cuda.empty_cache()
         print(f"phase {arch}: {time.monotonic() - t0:.1f}s")
+
+
+# ---------------------------------------------------------------------------
+# recurrent state lanes, the vision prefix and the encoder-decoder
+# ---------------------------------------------------------------------------
+
+def phase_attention_paligemma(dev) -> dict:
+    """The GQA kernel at paligemma's decode shape (8 query heads over one
+    KV head of 256, G = 8, Q = 1; the slots span the 256 vision rows, the
+    longest prompt and the generated tokens): registers, spills and
+    shared memory, errors against the plain version on bf16 and codec
+    pools, event, graph and device ms beside SDPA's, TF32 and f32 bounds
+    -> its ``kernels`` entry (launches are filled in from its serve)."""
+    cfg = get_config("paligemma-3b")
+    h, kh, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    gen = torch.Generator(device=dev).manual_seed(7)
+    pps = -(-(cfg.num_vision_tokens + int(SERVE_PROMPTS.max()) + SERVE_GEN)
+            // SERVE_PAGE)
+    q_lens, lengths = [1, 1, 0, 1], [pps * SERVE_PAGE, 300, 5, 289]
+    for pools in ("bfloat16", "gather"):
+        info = gqa_kernel_info(pools, SERVE_BATCH, 1, h, kh, d, d)
+        print(f"paged_attention (GQA) kernel at paligemma-3b Q=1 ({pools} "
+              f"pools, H={h}, KH={kh}, G={h // kh}, D=Dv={d}): "
+              f"{info['rows']} query rows a block, {info['registers']} "
+              f"registers a thread, {info['local_bytes']} local (spill) "
+              f"bytes, {info['smem_bytes']} B of dynamic shared memory")
+        if info["local_bytes"]:
+            fail(f"the GQA kernel ({pools}) spills at paligemma-3b")
+    worst, timing = _arch_attention_case(dev, cfg, 1, q_lens, lengths, pps,
+                                         gen)
+    for name, t in timing.items():
+        print(f"paged_mixed_attention at paligemma-3b Q=1 {name} pools "
+              f"(S={SERVE_BATCH}, H={h}, KH={kh}, D={d}, lengths {lengths}):"
+              f" kernel {t['ms']:.4f} ms (graph {t['graph_ms']:.4f}, device "
+              f"{t['device_ms']:.4f}), plain {t['plain_ms']:.4f} ms, sdpa "
+              f"{t['library_ms']:.4f} ms (graph {t['library_graph_ms']:.4f},"
+              f" device {t['library_device_ms']:.4f}); bound "
+              f"{t['bound_ms']:.4f} ms ({t['bound_by']}, TF32), f32 bound "
+              f"{t['bound_f32_ms']:.4f} ms; max abs err {worst[name]:.3e} "
+              f"<= {ATTN_TOL}")
+    return {"name": "paged_mixed_attention[paligemma]", "route": "cuda",
+            "variant_of": "paged_mixed_attention",
+            "source": "src/repro_torch/csrc/paged_attention.cu",
+            "replaces": "src/repro/kernels/paged_attention.py:239",
+            "max_abs_err": max(worst.values()), **timing["bf16"],
+            "shape": f"S=4 Q=1 H={h} KH={kh} D={d} page=16 bf16, lengths "
+                     f"{lengths} (the vision rows included; bound_ms at "
+                     f"the TF32 tensor-core rate; graph_ms: CUDA-graph "
+                     f"replay; device_ms: profiler kernel time)",
+            "codec_q1": timing["codec"]}
+
+
+def _decode_store_layers(engine, label) -> dict:
+    """Every compressed matrix shape of the engine's store decoded on the
+    card, all its tiles in one launch, bit for bit against the plain
+    version -> {(T, W, S, C): matrix (N x K bits)}."""
+    shapes = {}
+    for name, layers in engine.store.layers(engine.model_id).items():
+        layer = layers[0]
+        words, tables, c = layer.words, layer.tables, layer.tiled.c
+        got = huffman_decode(words, tables, c=c)
+        plain = ref.decode_tiled(words, tables, c)
+        torch.cuda.synchronize()
+        if not torch.equal(got, plain):
+            fail(f"{label}: huffman_decode differs from its plain version "
+                 f"on {name} at {int((got != plain).sum())} codes")
+        shapes[(*words.shape, c)] = f"{layer.n}x{layer.k} ({name})"
+    return shapes
+
+
+def phase_serve_state_arch(arch, dev) -> tuple:
+    """``arch`` at its published widths (depth cut) asked for the main
+    path (cuda_paged, chunk 64, page 16) and downgraded as the reference
+    downgrades it (notes printed): the recurrent archs serve on the
+    gathered backend with chunked prefill, paligemma on the kernel with
+    monolithic prefill behind its 256 vision rows, whisper gathered and
+    monolithic.  From a cold tile cache the decode kernel runs for the
+    compressed archs (the store's matrices decoded bit for bit beside),
+    and paligemma's attention kernel once a decode step and layer; a
+    second run gives the same tokens, and so does n-gram speculation for
+    the recurrent archs; one warm batch is profiled -> (huffman launches,
+    attention launches, decoded shapes)."""
+    engine = _arch_engine(arch, dev, STATE_ARCH_LAYERS)
+    cfg, label = engine.cfg, f"serve {arch}"
+    t0 = time.monotonic()
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in SERVE_PROMPTS]
+    notes = []
+    engine.cache.clear()
+    engine.metrics = ServeMetrics()
+    with _steps_counted() as steps:
+        _reset_counts()
+        toks, wall, sched = _serve(engine, prompts, emit=notes.append)
+        n_attn = _attn_launches(False)
+        n_dec = huffman_decode.launches
+    m = engine.metrics
+    for note in notes:
+        print(f"{label}: {note}")
+    print(f"{label}: cold run {time.monotonic() - t0:.1f}s")
+    vlm = cfg.family == "vlm"
+    want = ("cuda_paged" if vlm else "gathered",
+            None if cfg.family in ("vlm", "audio") else SERVE_CHUNK)
+    if (sched.attn_backend, sched.prefill_chunk) != want:
+        fail(f"{label}: served on {sched.attn_backend} with prefill_chunk "
+             f"{sched.prefill_chunk}, expected {want}")
+    n_steps = sum(steps.values())
+    if vlm:
+        blocks = _kernel_blocks(sched._pool)
+        if blocks != cfg.num_layers or set(steps) != {1} or \
+                n_steps != m.decode_steps or n_attn != n_steps * blocks \
+                or not n_attn:
+            fail(f"{label}: {n_attn} attention launches for {n_steps} Q=1 "
+                 f"steps ({dict(steps)}) of {blocks} pooled blocks, "
+                 f"{m.decode_steps} decode steps")
+    elif n_attn or n_steps:
+        fail(f"{label}: the attention kernel ran ({n_attn} launches, "
+             f"{n_steps} kernel steps) on the gathered backend")
+    if bool(n_dec) != engine.compressed or \
+            engine.compressed != (arch != "mamba2-780m"):
+        fail(f"{label}: {n_dec} decode launches, compressed="
+             f"{engine.compressed}")
+    shapes = _decode_store_layers(engine, label) if engine.compressed \
+        else {}
+    for shp, what in shapes.items():
+        print(f"{label}: huffman_decode at T={shp[0]} W={shp[1]} S={shp[2]} "
+              f"C={shp[3]} ({what}) bit-exact vs plain")
+    engine.metrics = ServeMetrics()
+    again, wall2, _ = _serve(engine, prompts, emit=notes.append)
+    if again != toks:
+        fail(f"{label}: a second run of the same requests gave other tokens")
+    m2 = engine.metrics
+    print(f"{label}: {len(prompts)} requests on {sched.attn_backend} "
+          f"(prefill_chunk {sched.prefill_chunk}, slot_len "
+          f"{sched._pool.slot_len}), launches: attention {n_attn} "
+          f"({n_steps} kernel-backend steps x {cfg.num_layers if vlm else 0}"
+          f" pooled blocks, {m.decode_steps} decode steps), decode {n_dec}; "
+          f"run 1 (cold) {wall:.2f}s, {m.ms_per_token():.2f} ms/step; run 2 "
+          f"(warm) {wall2:.2f}s, {m2.ms_per_token():.2f} ms/step, "
+          f"{m2.tokens_per_s():.1f} tok/s; tokens identical; sample "
+          f"{toks[0][:8]}")
+    # one warm batch profiled, device kernels only: the recurrent archs
+    # launch tens of thousands of small kernels a run
+    t1 = time.monotonic()
+    prof = profile_serve(engine, prompts[:SERVE_BATCH], cpu_ops=False,
+                         emit=notes.append)
+    print(f"serve {arch} warm (first {SERVE_BATCH} requests): "
+          f"{prof['ms_step']:.2f} ms/step, device busy {prof['busy_ms']:.1f} "
+          f"ms, attention kernel {prof['attn_ms']:.3f} ms "
+          f"x{prof['attn_launches']}, one warm materialize "
+          f"{prof['mat_ms']:.1f} ms (profiled run and its report "
+          f"{time.monotonic() - t1:.1f}s)")
+    if cfg.family in ("ssm", "hybrid"):
+        engine.metrics = ServeMetrics()
+        spec, wall3, _ = _serve(engine, prompts, emit=notes.append,
+                                speculate="ngram", draft_k=DRAFT_K)
+        ms = engine.metrics
+        if spec != toks:
+            fail(f"{label} ngram: other tokens than the plain run's")
+        print(f"{label} ngram (k={DRAFT_K}): tokens identical to the plain "
+              f"run's; {ms.spec_accepted_tokens}/{ms.spec_draft_tokens} "
+              f"drafts accepted, {ms.decode_steps} verify steps, {wall3:.2f}s"
+              f", {ms.ms_per_token():.2f} ms/step")
+    del engine
+    torch.cuda.empty_cache()
+    return n_dec, n_attn, shapes
+
+
+def phase_state_archs(dev, launches: dict) -> dict:
+    """Each of ``STATE_ARCH_LAYERS`` served (``phase_serve_state_arch``),
+    then its tiny config on card and CPU on ``STATE_SMALL_PATHS`` ->
+    {arch: (huffman launches, decoded shapes)}."""
+    out = {}
+    for arch in STATE_ARCH_LAYERS:
+        t0 = time.monotonic()
+        n_dec, n_attn, shapes = phase_serve_state_arch(arch, dev)
+        if arch == "paligemma-3b":
+            launches["paged_mixed_attention[paligemma]"] = n_attn
+        out[arch] = (n_dec, shapes)
+        t1 = time.monotonic()
+        phase_small_reference(dev, tiny_config(arch), f"tiny {arch}",
+                              paths=STATE_SMALL_PATHS)
+        print(f"phase {arch}: {time.monotonic() - t0:.1f}s (tiny card vs "
+              f"CPU {time.monotonic() - t1:.1f}s)")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3378,6 +3626,8 @@ def main() -> None:
     # before the serve phases: late in a run the profiler has been seen to
     # drop part of this kernel's time (graph ms unchanged)
     arch_kernels = timed("attention archs", phase_attention_archs, dev)
+    kernels.append(timed("attention paligemma", phase_attention_paligemma,
+                         dev))
     kernels += timed("attention verify", phase_attention_verify, dev)
     launches, prompts, fp_warm, toks = timed("serve minitron", phase_serve,
                                              engine)
@@ -3415,6 +3665,13 @@ def main() -> None:
           tiny_config("gemma2-2b").scaled(window=16),
           "tiny gemma2-2b at window 16 (local blocks rolling lanes beside "
           "the pools)", True)
+    state = timed("state archs", phase_state_archs, dev, launches)
+    kernels[0]["launches_by_arch"] = {a: n for a, (n, _) in state.items()
+                                      if n}
+    kernels[0]["arch_shapes"] = {
+        a: [f"T={t} W={w} S={sz} C={c}: {what}"
+            for (t, w, sz, c), what in shapes.items()]
+        for a, (_, shapes) in state.items() if shapes}
     params, images, comp = timed("setup reactnet", setup_reactnet, dev)
     kernels += timed("binary kernels", phase_binary_kernels, dev, comp)
     launches.update(timed("reactnet", phase_reactnet, dev, params, images,

@@ -1,8 +1,8 @@
 """Model configs (port of ``repro.configs.base`` without jax).
 
 ``ModelConfig`` keeps every field of the reference so a config carries
-across unchanged; ``get_config`` resolves only the archs this port runs
-and raises for the rest.
+across unchanged; ``get_config`` resolves the archs this port runs
+(``PORTED``: every arch of the reference) and raises for any other name.
 """
 
 from __future__ import annotations
@@ -92,9 +92,11 @@ class ModelConfig:
         return dataclasses.replace(self, **overrides)
 
 
-# the archs this port runs so far; the rest wait for later slices
-PORTED = ("minitron-8b", "deepseek-v2-236b", "phi3-medium-14b",
-          "h2o-danube-1.8b", "gemma2-2b", "mixtral-8x22b", "reactnet")
+# the archs this port runs: every LM arch of the reference and the BNN
+PORTED = ("mamba2-780m", "gemma2-2b", "minitron-8b", "phi3-medium-14b",
+          "h2o-danube-1.8b", "mixtral-8x22b", "deepseek-v2-236b",
+          "recurrentgemma-2b", "paligemma-3b", "whisper-large-v3",
+          "reactnet")
 
 
 def get_config(name: str):

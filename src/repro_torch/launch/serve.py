@@ -22,7 +22,10 @@ pages into later requests' page tables and skips their chunks;
 tokens a slot a step; ``--prompt-pattern`` tiles each prompt from a
 short pattern, the repetitive text where n-gram drafts are accepted.  It
 prints the same summary lines as the reference launcher for what it
-supports.
+supports.  An arch that lacks what a flag asks for is downgraded as the
+reference downgrades it, with a warning and a ``note:`` line: the
+recurrent archs and whisper-large-v3 from ``cuda_paged`` to ``gathered``,
+paligemma-3b and whisper from chunked to monolithic prefill.
 
 Observability, as in the reference launcher: ``--trace-out trace.json``
 records every request's lifecycle span tree (queued -> admitted ->
@@ -57,6 +60,9 @@ capacities and serves at the hit-rate-cliff knee.  The reference's
       --kv-page-size 16 --prefill-chunk 16 --prefix-share \
       --shared-prefix-len 32 --speculate ngram --prompt-pattern 8
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+      --scale tiny --arch recurrentgemma-2b --attn-backend cuda_paged \
+      --kv-page-size 16 --prefill-chunk 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
       --scale tiny --arch minitron-8b --cache-mb auto \
       --trace-out trace.json --trace-jsonl trace.jsonl \
       --metrics-out metrics.prom
@@ -80,7 +86,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs import base as cfgs
 from repro_torch.kernels import kv_codec as kvc
-from repro_torch.models.transformer import init_params
+from repro_torch.models.api import get_model
 from repro_torch.runtime import (Scheduler, ServeEngine, Telemetry,
                                  parse_prom, recommend_store_capacity)
 from repro_torch.runtime.decode_cache import POLICIES
@@ -102,9 +108,12 @@ TOO_DEEP_FOR_ONE_CARD = {
 
 def tiny_config(arch: str):
     """The reference's ``--scale tiny`` config (``repro.launch.train``'s
-    overrides, for the families this port runs)."""
+    overrides)."""
     cfg = cfgs.get_config(arch)
     over = dict(TINY_OVERRIDES)
+    if cfg.family == "ssm":
+        over.update(num_heads=0, num_kv_heads=0, head_dim=0, d_ff=0,
+                    ssm_heads=4, ssm_state=16, ssm_chunk=32, expand=2)
     if cfg.family == "moe":
         over.update(num_experts=4, top_k=2, moe_d_ff=128,
                     num_shared_experts=min(1, cfg.num_shared_experts))
@@ -114,6 +123,13 @@ def tiny_config(arch: str):
         if cfg.kv_lora_rank:
             over.update(num_kv_heads=4, kv_lora_rank=32, q_lora_rank=48,
                         rope_head_dim=16, nope_head_dim=32, v_head_dim=32)
+    if cfg.family == "hybrid":
+        over.update(scan_repeats=1, suffix_kinds=("rglru",), num_layers=4,
+                    lru_width=128, num_kv_heads=1)
+    if cfg.family == "vlm":
+        over.update(num_vision_tokens=8, num_kv_heads=1)
+    if cfg.family == "audio":
+        over.update(encoder_layers=2, encoder_seq=32, num_kv_heads=4)
     if cfg.scan_pattern and len(cfg.scan_pattern) > 1:
         # one repeat of a multi-kind pattern (gemma2: local + global)
         over.update(scan_repeats=max(1, over["num_layers"]
@@ -123,14 +139,24 @@ def tiny_config(arch: str):
     return cfg.scaled(**over)
 
 
+def init_params(cfg, generator: torch.Generator, device):
+    """Random params of ``cfg``'s family (``models.api.get_model``)."""
+    return get_model(cfg).init_params(cfg, generator, device)
+
+
 def cut_depth(cfg, layers: int):
     """``cfg`` at its published widths with ``layers`` blocks: the prefix
-    and suffix blocks kept, the repeated pattern cut."""
+    and suffix blocks kept, the repeated pattern cut (recurrentgemma: 5 =
+    one rglru, rglru, attn_local repeat + its two suffix rglru blocks).
+    An encoder-decoder keeps ``layers`` encoder and decoder layers."""
     fixed = len(cfg.prefix_kinds) + len(cfg.suffix_kinds)
     repeats = (layers - fixed) // len(cfg.scan_pattern)
     if repeats < 0 or fixed + repeats * len(cfg.scan_pattern) != layers:
         raise ValueError(f"{cfg.name}: cannot cut to {layers} layers "
                          f"({fixed} fixed + repeats of {cfg.scan_pattern})")
+    if cfg.encoder_layers:
+        return cfg.scaled(num_layers=layers, scan_repeats=repeats,
+                          encoder_layers=layers)
     return cfg.scaled(num_layers=layers, scan_repeats=repeats)
 
 
@@ -277,9 +303,11 @@ def main(argv=None):
     else:
         cfg = full_config(args.arch, args.layers)
         if args.layers is not None:
+            enc = f" (encoder {cfg.encoder_layers})" \
+                if cfg.encoder_layers else ""
             print(f"depth cut: {args.arch} "
                   f"{cfgs.get_config(args.arch).num_layers} -> "
-                  f"{cfg.num_layers} layers (published widths)")
+                  f"{cfg.num_layers} layers{enc} (published widths)")
     n_requests = args.requests or args.batch
     cache_auto = args.cache_mb == "auto"
     cache_bytes = None if args.cache_mb is None or cache_auto \
@@ -319,7 +347,8 @@ def main(argv=None):
               f"({rep['ratio_stream']:.3f}x), registered in "
               f"{time.monotonic() - t0:.1f}s")
     else:
-        print(f"weight store: serving {args.arch} uncompressed")
+        print(f"weight store: no compressible MLPs in {args.arch}; "
+              "serving uncompressed")
 
     sched = Scheduler(engine, batch_size=args.batch, mode=args.mode,
                       prefill_chunk=args.prefill_chunk,

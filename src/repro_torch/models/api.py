@@ -1,12 +1,13 @@
-"""Model API: the entry points the runtime calls, and the cache-layout
-probe (port of the serving half of ``repro.models.api``)."""
+"""Model API: the entry points the runtime calls, family by family, and
+the cache-layout probe (port of the serving half of
+``repro.models.api``)."""
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Callable
 
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 from repro_torch.tree import tree_leaves
 
 # the attention backends this port serves with: "gathered" copies each
@@ -28,22 +29,27 @@ PAGEABLE_KINDS = frozenset(
 
 @dataclasses.dataclass(frozen=True)
 class ModelAPI:
-    forward: Callable[..., Any]              # (cfg, params, tokens)
-    prefill: Callable[..., Any]              # (cfg, params, tokens, cache)
+    init_params: Callable[..., Any]          # (cfg, generator, device)
+    forward: Callable[..., Any]              # (cfg, params, tokens, *extra)
+    prefill: Callable[..., Any]
+    # (cfg, params, tokens, cache, *extra); extra: the audio family's
+    # frame embeddings (the vlm's vision embeddings ride as a keyword)
     decode_step: Callable[..., Any]
     # (cfg, params, lane cache, tokens (B, 1), pos, *, kv_quant, per_lane)
-    prefill_chunk: Callable[..., Any]
-    # (cfg, params, lane cache, tokens (B, S), pos, *, kv_quant); the
-    # gathered backend's chunk step over a standalone batch-1 cache
     init_cache_specs: Callable[..., Any]     # (cfg, batch, max_len)
     init_cache: Callable[..., Any]           # (cfg, batch, max_len, device)
-    mixed_step: Callable[..., Any]
+    prefill_chunk: Callable[..., Any] | None = None
+    # (cfg, params, lane cache, tokens (B, S), pos, *, kv_quant); the
+    # gathered backend's chunk step over a standalone batch-1 cache; None
+    # when the family cannot resume a prompt mid-cache (encoder-decoder)
+    mixed_step: Callable[..., Any] | None = None
     # (cfg, params, paged cache, table, tokens (S, Q), poss (S,),
-    #  q_lens (S,), *, paged_flags, page_size) -> (logits (S, Q, V), cache)
-    verify_step: Callable[..., Any]
+    #  q_lens (S,), *, paged_flags, page_size) -> (logits (S, Q, V), cache);
+    # None when the family cannot consume a paged cache (encoder-decoder)
+    verify_step: Callable[..., Any] | None = None
     # (cfg, params, lane cache, tokens (B, S), pos, q_lens (B,), *,
     #  kv_quant, per_lane) -> (full logits (B, S, V), cache); speculative
-    # verification of ragged draft blocks
+    # verification of ragged draft blocks; None for the encoder-decoder
 
 
 def _kinds(cfg) -> tuple:
@@ -116,7 +122,14 @@ def cache_layout(api: ModelAPI, cfg, slot_len: int):
 
 def get_model(cfg) -> ModelAPI:
     transformer.check_supported(cfg)
-    return ModelAPI(forward=transformer.forward, prefill=transformer.prefill,
+    if cfg.family == "audio":
+        return ModelAPI(init_params=encdec.init_params,
+                        forward=encdec.forward, prefill=encdec.prefill,
+                        decode_step=encdec.decode_step,
+                        init_cache_specs=encdec.init_cache_specs,
+                        init_cache=encdec.init_cache)
+    return ModelAPI(init_params=transformer.init_params,
+                    forward=transformer.forward, prefill=transformer.prefill,
                     decode_step=transformer.decode_step,
                     prefill_chunk=transformer.prefill_chunk,
                     init_cache_specs=transformer.init_cache_specs,

@@ -412,6 +412,33 @@ def attn_cache_spec(cfg, kind: str, batch: int, max_len: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# cross attention (whisper decoder)
+# ---------------------------------------------------------------------------
+
+def cross_attn_init(gen: torch.Generator, cfg, dtype, device) -> dict:
+    return attn_init(gen, cfg, dtype, device)
+
+
+def cross_attn_apply(p: dict, x: torch.Tensor, cfg, *, enc_kv=None,
+                     enc_out=None):
+    """Decoder queries ``x`` (B, S, D) over the encoder's keys and values,
+    bidirectionally and without rope -> (y, {"k", "v"}).  ``enc_kv``: the
+    cached {"k", "v"} (B, Se, KH, hd) a prefill computed; else they are
+    computed from ``enc_out`` (B, Se, D)."""
+    b, s, _ = x.shape
+    h, kh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = (x @ p["wq"]).reshape(b, s, h, hd)
+    if enc_kv is None:
+        se = enc_out.shape[1]
+        k = (enc_out @ p["wk"]).reshape(b, se, kh, hd)
+        v = (enc_out @ p["wv"]).reshape(b, se, kh, hd)
+    else:
+        k, v = enc_kv["k"], enc_kv["v"]
+    out = flash_attention(q, k, v, causal=False)
+    return out.reshape(b, s, -1).to(x.dtype) @ p["wo"], {"k": k, "v": v}
+
+
+# ---------------------------------------------------------------------------
 # MLA (DeepSeek-V2): latent KV compression, absorbed attention
 # ---------------------------------------------------------------------------
 

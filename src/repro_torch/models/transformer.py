@@ -7,11 +7,16 @@ carries across leaf for leaf (:func:`params_from_numpy`).  The scan over
 repeats becomes a Python loop over the stacked leaves' first axis.
 
 Ported: dense attention blocks (kinds ``"attn"`` and ``"global"``, full
-history, and ``"swa"`` and ``"local"``, a sliding window), the Mixtral
-block (``"swa_moe"``: a sliding window and routed experts), gemma2's
-sandwich norms (``cfg.post_norms``), MLA blocks with a dense MLP or
-shared + routed experts (``"mla_dense"``, ``"mla_moe"``, the deepseek-v2
-stack), and every step function of the reference's serving and scoring
+history, and ``"swa"``, ``"local"`` and ``"attn_local"``, a sliding
+window), the Mixtral block (``"swa_moe"``: a sliding window and routed
+experts), gemma2's sandwich norms (``cfg.post_norms``), MLA blocks with a
+dense MLP or shared + routed experts (``"mla_dense"``, ``"mla_moe"``, the
+deepseek-v2 stack), the recurrent blocks (``"ssm"``: mamba2's SSD mixer
+without an MLP; ``"rglru"``: recurrentgemma's RG-LRU mixer and its MLP),
+the encoder-decoder's blocks (``"bidir"``, ``"dec"`` with cross-attention;
+the stack itself is ``models.encdec``), paligemma's vision prefix
+(bidirectional, spliced before the scaled text embeddings), and every
+step function of the reference's serving and scoring
 paths: :func:`forward`/:func:`backbone` without a cache, monolithic
 :func:`prefill`, :func:`prefill_chunk`, :func:`decode_step` and the
 speculative :func:`verify_step` over lane caches (``kv_quant`` rounds
@@ -30,6 +35,8 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import rglru as rglru_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (embed_init, mlp_apply, mlp_init,
                                        rms_norm, rms_norm_init, softcap)
 from repro_torch.tree import (params_from_numpy, tree_leaves,  # noqa: F401
@@ -38,7 +45,7 @@ from repro_torch.tree import (params_from_numpy, tree_leaves,  # noqa: F401
 MOE_KINDS = ("swa_moe", "mla_moe", "moe")
 MLA_KINDS = ("mla_dense", "mla_moe")
 PORTED_KINDS = ("attn", "swa", "local", "global", "swa_moe", "mla_dense",
-                "mla_moe")
+                "mla_moe", "ssm", "rglru", "attn_local", "bidir", "dec")
 
 
 def check_supported(cfg) -> None:
@@ -64,10 +71,19 @@ def _attn_kind(kind: str) -> str:
 
 def block_init(kind: str, cfg, gen, dtype, device) -> dict:
     d = cfg.d_model
-    p = {"ln1": rms_norm_init(d, dtype, device),
-         "attn": (attn.mla_init if kind in MLA_KINDS else attn.attn_init)(
-             gen, cfg, dtype, device),
-         "ln2": rms_norm_init(d, dtype, device)}
+    p = {"ln1": rms_norm_init(d, dtype, device)}
+    if kind == "ssm":
+        p["mixer"] = ssm_mod.ssm_init(gen, cfg, dtype, device)
+        return p
+    if kind == "rglru":
+        p["mixer"] = rglru_mod.rglru_init(gen, cfg, dtype, device)
+    else:
+        p["attn"] = (attn.mla_init if kind in MLA_KINDS
+                     else attn.attn_init)(gen, cfg, dtype, device)
+    if kind == "dec":
+        p["ln_cross"] = rms_norm_init(d, dtype, device)
+        p["cross"] = attn.cross_attn_init(gen, cfg, dtype, device)
+    p["ln2"] = rms_norm_init(d, dtype, device)
     if kind in MOE_KINDS:
         p["moe"] = moe_mod.moe_init(gen, cfg, dtype, device)
     elif cfg.d_ff:
@@ -81,9 +97,13 @@ def block_init(kind: str, cfg, gen, dtype, device) -> dict:
 def block_apply(kind: str, cfg, p: dict, x: torch.Tensor, *, cache=None,
                 pos=None, prefix_len: int = 0, paged=None, q_lens=None,
                 scales=None, kv_quant: bool = False,
-                per_lane: bool = False):
-    """-> (x, aux loss, None for a block without an MoE): attention (GQA,
-    or MLA for the MLA kinds), then the MLP (binarised when
+                per_lane: bool = False, enc_out=None):
+    """-> (x, aux loss, None for a block without an MoE): the mixer
+    (attention, GQA or MLA for the MLA kinds; or the recurrent ``ssm``,
+    which has no MLP, or ``rglru``), for ``"dec"`` cross-attention over
+    ``enc_out`` (a prefill, which caches its K/V) or over the cached
+    cross K/V (one token and no ``enc_out``: decode), then the MLP
+    (binarised when
     ``cfg.binarize_mlp``, the compressed serving mode) or the MoE, each
     output normed again under ``cfg.post_norms`` before the residual add.
     ``cache`` (and under the codec ``scales``, this block's scale pools
@@ -92,16 +112,38 @@ def block_apply(kind: str, cfg, p: dict, x: torch.Tensor, *, cache=None,
     its own batch-1 sequence, as the reference's vmap over slots does:
     the MoE then shares no capacity across rows."""
     h = rms_norm(p["ln1"], x, cfg.norm_eps)
+    if kind == "ssm":
+        y, _ = ssm_mod.ssm_apply(p["mixer"], h, cfg, cache=cache, pos=pos,
+                                 q_lens=q_lens)
+        return x + y, None
     kw = dict(cache=cache, pos=pos, paged=paged, q_lens=q_lens,
               scales=scales, kv_quant=kv_quant)
-    if kind in MLA_KINDS:
+    if kind == "rglru":
+        y, _ = rglru_mod.rglru_apply(p["mixer"], h, cfg, cache=cache,
+                                     pos=pos, q_lens=q_lens)
+    elif kind in MLA_KINDS:
         y = attn.mla_apply(p["attn"], h, cfg, **kw)[0]
     else:
+        if kind == "dec" and cache is not None:
+            kw["cache"] = cache["self"]
         y = attn.attn_apply(p["attn"], h, cfg, kind=_attn_kind(kind),
                             prefix_len=prefix_len, **kw)[0]
     if cfg.post_norms:
         y = rms_norm(p["post_ln1"], y, cfg.norm_eps)
     x = x + y
+    if kind == "dec":                     # cross-attention sub-layer
+        hc = rms_norm(p["ln_cross"], x, cfg.norm_eps)
+        # the cached cross K/V serve decode; a prefill computes them from
+        # enc_out and caches them
+        decode_mode = x.shape[1] == 1 and enc_out is None
+        yc, cross_kv = attn.cross_attn_apply(
+            p["cross"], hc, cfg, enc_out=enc_out,
+            enc_kv=cache["cross"] if decode_mode and cache is not None
+            else None)
+        x = x + yc
+        if cache is not None and not decode_mode:
+            for name in ("k", "v"):
+                cache["cross"][name].copy_(cross_kv[name])
     aux = None
     if "moe" in p or "mlp" in p:
         h2 = rms_norm(p["ln2"], x, cfg.norm_eps)
@@ -118,9 +160,20 @@ def block_apply(kind: str, cfg, p: dict, x: torch.Tensor, *, cache=None,
 
 
 def block_cache_spec(kind: str, cfg, batch: int, max_len: int) -> dict:
-    """Shape/dtype stand-ins (meta tensors) of one block's KV cache."""
+    """Shape/dtype stand-ins (meta tensors) of one block's cache: KV, or
+    the recurrent state (``ssm``, ``rglru``), or for ``"dec"`` its
+    self-attention KV beside the cross K/V of ``encoder_seq`` rows."""
+    if kind == "ssm":
+        return ssm_mod.ssm_cache_spec(cfg, batch)
+    if kind == "rglru":
+        return rglru_mod.rglru_cache_spec(cfg, batch)
     if kind in MLA_KINDS:
         return attn.mla_cache_spec(cfg, batch, max_len)
+    if kind == "dec":
+        shp = (batch, cfg.encoder_seq, cfg.num_kv_heads, cfg.head_dim)
+        return {"self": attn.attn_cache_spec(cfg, "attn", batch, max_len),
+                "cross": {n: torch.empty(shp, dtype=cfg.torch_dtype,
+                                         device="meta") for n in ("k", "v")}}
     return attn.attn_cache_spec(cfg, _attn_kind(kind), batch, max_len)
 
 
@@ -199,6 +252,15 @@ def _embed_step(cfg, params, tokens):
     return x
 
 
+def _embed(cfg, params, tokens, vision_embeds=None):
+    """A prompt's embeddings: the (scaled) text embeddings behind the
+    unscaled vision embeddings (paligemma's prefix), when given."""
+    x = _embed_step(cfg, params, tokens)
+    if vision_embeds is not None:
+        x = torch.cat([vision_embeds.to(x.dtype), x], dim=1)
+    return x
+
+
 def _unembed(cfg, params, x):
     """x: final-norm'd hidden -> softcapped f32 logits."""
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
@@ -256,27 +318,34 @@ def _run_stack(cfg, params, cache, x, *, pos=None, prefix_len: int = 0,
     return x, [a for a in auxes if a is not None]
 
 
-def backbone(cfg, params, tokens):
-    """Embed + layer stack + final norm, no cache -> (hidden (B, S, D),
-    aux loss)."""
+def backbone(cfg, params, tokens, *, vision_embeds=None):
+    """Embed + layer stack + final norm, no cache -> (hidden (B, S*, D),
+    aux loss).  ``vision_embeds`` (B, V, D) is a bidirectional prefix
+    before the text (S* = V + S)."""
+    prefix_len = vision_embeds.shape[1] if vision_embeds is not None else 0
     x, auxes = _run_stack(cfg, params, None,
-                          _embed_step(cfg, params, tokens))
+                          _embed(cfg, params, tokens, vision_embeds),
+                          prefix_len=prefix_len)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for a in auxes:
         aux = aux + a
     return rms_norm(params["final_norm"], x, cfg.norm_eps), aux
 
 
-def forward(cfg, params, tokens):
-    """Scoring forward -> (logits (B, S, V) f32, aux loss)."""
-    x, aux = backbone(cfg, params, tokens)
+def forward(cfg, params, tokens, *, vision_embeds=None):
+    """Scoring forward -> (logits (B, S*, V) f32, aux loss)."""
+    x, aux = backbone(cfg, params, tokens, vision_embeds=vision_embeds)
     return _unembed(cfg, params, x), aux
 
 
-def prefill(cfg, params, tokens, cache):
-    """The whole prompt ``tokens`` (B, S) from position 0 -> (last-token
-    logits (B, 1, V), ``cache`` filled in place)."""
-    x, _ = _run_stack(cfg, params, cache, _embed_step(cfg, params, tokens))
+def prefill(cfg, params, tokens, cache, *, vision_embeds=None):
+    """The whole prompt ``tokens`` (B, S) from position 0, behind the
+    bidirectional ``vision_embeds`` prefix (B, V, D) when given -> (last-
+    token logits (B, 1, V), ``cache`` filled in place: V + S rows)."""
+    prefix_len = vision_embeds.shape[1] if vision_embeds is not None else 0
+    x, _ = _run_stack(cfg, params, cache,
+                      _embed(cfg, params, tokens, vision_embeds),
+                      prefix_len=prefix_len)
     x = rms_norm(params["final_norm"], x[:, -1:], cfg.norm_eps)
     return _unembed(cfg, params, x), cache
 

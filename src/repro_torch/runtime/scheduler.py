@@ -57,8 +57,10 @@ request lifecycle on each request's track (``queued``, ``admitted``,
 ``mixed_step``, ``prefill``, ``decode``, the KV copies, the speculative
 rounds) on the host clock; telemetry never changes what is served.
 
-The kernel autotuner is not ported yet and is refused with
-``NotImplementedError`` rather than served some other way.
+An arch that lacks a capability is downgraded as the reference
+downgrades it, with a warning and a note (``Scheduler``).  The kernel
+autotuner is not ported yet and is refused with ``NotImplementedError``
+rather than served some other way.
 """
 
 from __future__ import annotations
@@ -75,6 +77,7 @@ from repro_torch import resolve_device
 from repro_torch.kernels import kv_codec as kv_codec_mod
 from repro_torch.kernels.kv_codec import KV_CODECS
 from repro_torch.models.api import (ATTN_BACKENDS, cache_layout, get_model,
+                                    supports_chunked_prefill,
                                     supports_paged_attention,
                                     supports_prefix_share,
                                     supports_speculation)
@@ -273,8 +276,14 @@ class ServeEngine:
         self._batch_axes = cache_layout(self.api, cfg, SLOT_LEN_QUANTUM)[0]
 
     @property
+    def supports_chunked_prefill(self) -> bool:
+        return self.api.prefill_chunk is not None and \
+            supports_chunked_prefill(self.cfg)
+
+    @property
     def supports_paged_attention(self) -> bool:
-        return supports_paged_attention(self.cfg)
+        return self.api.mixed_step is not None and \
+            supports_paged_attention(self.cfg)
 
     def mixed_step(self, params, kcache, table, toks, poss, q_lens, *,
                    paged_flags: tuple, page_size: int, kv_scales=None):
@@ -299,25 +308,45 @@ class ServeEngine:
                 return self.store.materialize(self.model_id)
         return self._raw_params
 
+    def extra_inputs(self, batch: int) -> tuple:
+        """The stubbed multimodal frontends' outputs, as the reference's:
+        zero vision embeddings (vlm) or zero frame embeddings (audio) for
+        ``batch`` prompts; nothing for the text-only families."""
+        cfg = self.cfg
+        rows = {"vlm": cfg.num_vision_tokens,
+                "audio": cfg.encoder_seq}.get(cfg.family)
+        if rows is None:
+            return ()
+        return (torch.zeros((batch, rows, cfg.d_model),
+                            dtype=cfg.torch_dtype, device=self.device),)
+
     def pos_offset(self, prompt_len: int) -> int:
-        """Absolute position of the first generated token."""
+        """Absolute position of the first generated token: behind the
+        vision prefix for a vlm."""
+        if self.cfg.family == "vlm":
+            return prompt_len + self.cfg.num_vision_tokens
         return prompt_len
 
     def cache_len(self, prompt_len: int, gen: int) -> int:
         return self.pos_offset(prompt_len) + gen
 
-    def prefill(self, params, tokens, cache):
-        """Whole-prompt prefill of ``tokens`` (B, S) into ``cache`` ->
-        (last-token logits (B, 1, V), cache filled in place)."""
+    def prefill(self, params, tokens, cache, *extra):
+        """Whole-prompt prefill of ``tokens`` (B, S) into ``cache``, behind
+        ``extra`` (:meth:`extra_inputs`) -> (last-token logits (B, 1, V),
+        cache filled in place)."""
         with torch.no_grad():
-            return self.api.prefill(self.cfg, params, tokens, cache)
+            if self.cfg.family == "vlm":
+                return self.api.prefill(self.cfg, params, tokens, cache,
+                                        vision_embeds=extra[0])
+            return self.api.prefill(self.cfg, params, tokens, cache, *extra)
 
     def prefill_request(self, params, prompt: np.ndarray, slot_len: int):
         """Batch-1 exact-position prefill -> (first generated token, filled
         slot cache with leaves (1, ...))."""
         cache = self.fresh_slot_cache(slot_len)
         logits, cache = self.prefill(
-            params, _on_device(np.asarray(prompt)[None], self.device), cache)
+            params, _on_device(np.asarray(prompt)[None], self.device), cache,
+            *self.extra_inputs(1))
         last = logits[0, -1]
         if not bool(torch.isfinite(last).all()):
             raise RuntimeError(
@@ -1161,11 +1190,20 @@ class Scheduler:
 
     ``prefix_share=True`` (needs ``kv_page_size`` and ``prefill_chunk``)
     maps cached prefix pages into each admitted request's table and skips
-    their chunks; an arch with rolling-window lanes downgrades to private
-    pages with a warning and a note, as in the reference.
-    ``speculate="ngram"``, ``"draft"`` or ``"draft:<arch>"`` verifies up
-    to ``draft_k`` drafts a slot a step, token-identical to plain greedy
-    decoding."""
+    their chunks.  ``speculate="ngram"``, ``"draft"`` or
+    ``"draft:<arch>"`` verifies up to ``draft_k`` drafts a slot a step,
+    token-identical to plain greedy decoding.
+
+    What an arch cannot do is downgraded as in the reference, each with
+    a ``RuntimeWarning`` (once per family and capability) and a ``note:``
+    line: a multimodal prefix (vlm, audio) falls back to monolithic
+    prefill, an arch without the verify step (audio) to plain decoding,
+    an arch whose caches do not all page (the recurrent ssm and hybrid
+    families, audio) from ``cuda_paged`` to ``gathered``, and one with
+    lane leaves (rolling windows, recurrent state) or without chunked
+    prefill to private pages.  Recurrent state and cross K/V stay per-slot
+    lanes on every layout; speculation commits the accepted lengths, so a
+    recurrent state advances by accepted tokens only."""
 
     def __init__(self, engine: ServeEngine, *, batch_size: int = 4,
                  buckets: tuple[int, ...] = DEFAULT_BUCKETS,
@@ -1205,15 +1243,10 @@ class Scheduler:
         if prefix_share and prefill_chunk is None:
             raise ValueError("prefix_share skips prefill chunk by chunk; "
                              "set prefill_chunk")
-        refused = [
-            ((kernel_tune or "off") != "off", f"kernel_tune={kernel_tune!r}"),
-            (not engine.supports_paged_attention,
-             "archs without paged attention"),
-        ]
-        for bad, what in refused:
-            if bad:
-                raise NotImplementedError(
-                    f"{what} is not ported to repro_torch yet")
+        if (kernel_tune or "off") != "off":
+            raise NotImplementedError(
+                f"kernel_tune={kernel_tune!r} is not ported to repro_torch "
+                f"yet")
         self.engine = engine
         self.batch_size = batch_size
         self.buckets = tuple(sorted(buckets))
@@ -1235,7 +1268,19 @@ class Scheduler:
         self._pool: SlotPool | None = None
         self._next_rid = 0
         family = engine.cfg.family
-        if self.speculate != "off" and not supports_speculation(engine.cfg):
+        if prefill_chunk is not None and \
+                not engine.supports_chunked_prefill:
+            self.prefill_chunk = None
+            _warn_fallback(
+                family, "chunked_prefill",
+                f"{family} arch downgraded to monolithic "
+                f"prefill: supports_chunked_prefill=False (a multimodal "
+                f"prefix cannot resume a prompt mid-cache)")
+            emit(f"note: {family} arch cannot resume a prompt "
+                 "mid-cache; falling back to monolithic prefill")
+        if self.speculate != "off" and (
+                not supports_speculation(engine.cfg) or
+                engine.api.verify_step is None):
             self.speculate = "off"
             _warn_fallback(
                 family, "speculation",
@@ -1246,7 +1291,18 @@ class Scheduler:
                  "mid-cache; speculative decoding off")
         if self.speculate != "off":
             self.drafter = make_drafter(self.speculate, engine)
-        if self.prefix_share and not supports_prefix_share(engine.cfg):
+        if attn_backend == "cuda_paged" and \
+                not engine.supports_paged_attention:
+            self.attn_backend = "gathered"
+            _warn_fallback(
+                family, "paged_attention",
+                f"{family} arch downgraded to the gathered "
+                f"attention backend: supports_paged_attention=False (no "
+                f"attention-style cache to page)")
+            emit(f"note: {family} arch has no paged decode "
+                 "attention; falling back to the gathered backend")
+        if self.prefix_share and (self.prefill_chunk is None or
+                                  not supports_prefix_share(engine.cfg)):
             self.prefix_share = False
             _warn_fallback(
                 family, "prefix_share",

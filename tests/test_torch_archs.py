@@ -1,4 +1,5 @@
-"""phi3-medium-14b, h2o-danube-1.8b, gemma2-2b and mixtral-8x22b in the
+"""phi3-medium-14b, h2o-danube-1.8b, gemma2-2b and mixtral-8x22b, and
+mamba2-780m, recurrentgemma-2b, paligemma-3b and whisper-large-v3, in the
 port against the JAX reference, on the CPU.
 
 * Each port config equals the reference's field for field.
@@ -7,7 +8,9 @@ port against the JAX reference, on the CPU.
   ``block_cache_spec`` gives ``swa_moe`` and ``attn_local`` the
   reference's rolling shapes.
 * gemma2's blocks (``local``/``global`` with sandwich norms, attention
-  softcap) and every arch's scoring forward equal the reference's.
+  softcap) and every arch's scoring forward equal the reference's
+  (paligemma behind vision embeddings, whisper over frame embeddings), and
+  every arch's ``init_params`` has the reference's tree.
 * The launcher's ``--scale tiny`` config is the reference's (gemma2: one
   ``local`` + ``global`` repeat), and mixtral needs a depth cut.
 
@@ -18,6 +21,7 @@ compute in f32 and differ in summation order only.
 """
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -28,14 +32,18 @@ import torch
 from repro.configs.base import get_config as get_jax_config
 from repro.launch.train import tiny_config as jax_tiny_config
 from repro.models import transformer as jtransformer
+from repro.models.api import get_model as jax_get_model
 from repro_torch.configs.base import get_config
 from repro_torch.launch import serve as serve_launch
 from repro_torch.models import transformer
+from repro_torch.models.api import get_model
 from repro_torch.tree import tree_leaves, tree_map, tree_map_with_path
-from tests.test_torch_harness import (jax_params, reduced_jax, reduced_torch,
-                                      torch_params)
+from tests.test_torch_harness import (jax_params, jitted, reduced_jax,
+                                      reduced_torch, torch_params)
 
-ARCHS = ("phi3-medium-14b", "h2o-danube-1.8b", "gemma2-2b", "mixtral-8x22b")
+ARCHS = ("phi3-medium-14b", "h2o-danube-1.8b", "gemma2-2b", "mixtral-8x22b",
+         "mamba2-780m", "recurrentgemma-2b", "paligemma-3b",
+         "whisper-large-v3")
 ATOL = RTOL = 1e-5
 
 
@@ -81,6 +89,25 @@ def test_mixtral_full_depth_needs_a_layer_cut():
         assert serve_launch.full_config(arch) == get_config(arch)
 
 
+def test_recurrent_and_multimodal_depth_cuts():
+    """The chip's cuts keep the published widths: recurrentgemma as one
+    (rglru, rglru, attn_local) repeat and its two suffix rglru blocks,
+    whisper with as many encoder as decoder layers, mamba2 whole."""
+    rg = serve_launch.full_config("recurrentgemma-2b", 5)
+    assert (rg.scan_repeats, rg.suffix_kinds, rg.d_model, rg.lru_width,
+            rg.d_ff) == (1, ("rglru", "rglru"), 2560, 2560, 7680)
+    wh = serve_launch.full_config("whisper-large-v3", 2)
+    assert (wh.num_layers, wh.scan_repeats, wh.encoder_layers,
+            wh.encoder_seq, wh.d_model) == (2, 2, 2, 1536, 1280)
+    pg = serve_launch.full_config("paligemma-3b", 2)
+    assert (pg.scan_repeats, pg.num_vision_tokens, pg.d_ff) == \
+        (2, 256, 16384)
+    assert serve_launch.full_config("mamba2-780m") == \
+        get_config("mamba2-780m")
+    with pytest.raises(ValueError, match="cannot cut"):
+        serve_launch.full_config("recurrentgemma-2b", 4)
+
+
 def _block(arch, i, seed=1):
     """Block ``b{i}`` of the reduced arch's first scan repeat, in both
     packages."""
@@ -97,14 +124,14 @@ def _block_case(arch, i, kind, s=20):
     jcfg, cfg, jp, p = _block(arch, i)
     x = np.random.default_rng(5).standard_normal(
         (2, s, cfg.d_model)).astype(np.float32)
-    want, _, _ = jtransformer.block_apply(kind, jcfg, jp, J(x))
+    jblock = jax.jit(functools.partial(jtransformer.block_apply, kind, jcfg))
+    want, _, _ = jblock(jp, J(x))
     with torch.no_grad():
         got, _ = transformer.block_apply(kind, cfg, p, T(x))
     close(got, want)
     jcache = jtransformer.init_cache(jcfg, 2, 32)["scan"][f"b{i}"]
     jcache = jax.tree_util.tree_map(lambda a: a[0], jcache)
-    want, want_cache, _ = jtransformer.block_apply(kind, jcfg, jp, J(x),
-                                                   cache=jcache)
+    want, want_cache, _ = jblock(jp, J(x), cache=jcache)
     cache = tree_map(lambda a: a[0], transformer.init_cache(
         cfg, 2, 32, "cpu")["scan"][f"b{i}"])
     with torch.no_grad():
@@ -157,15 +184,29 @@ def test_gemma2_block_equals_the_reference(i, kind):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_forward_logits_equal_the_reference(arch):
     """The scoring forward over a 24-token input: embedding scale and final
-    softcap (gemma2), windows past their length (danube, gemma2, mixtral),
-    MoE without drops (mixtral at capacity factor 8)."""
+    softcap (gemma2), windows past their length (danube, gemma2, mixtral,
+    recurrentgemma's ``attn_local``), MoE without drops (mixtral at
+    capacity factor 8), the SSD scan over two chunks (mamba2), the RG-LRU
+    scan, paligemma's 8 vision rows before the text, whisper's encoder and
+    cross-attention."""
     jcfg, cfg = reduced_jax(arch), reduced_torch(arch)
     tree = jax_params(jcfg, seed=2)
-    toks = np.random.default_rng(7).integers(0, 128, (2, 24)).astype(
-        np.int32)
-    want, _ = jtransformer.forward(jcfg, tree, J(toks))
+    rng = np.random.default_rng(7)
+    toks = rng.integers(0, 128, (2, 24)).astype(np.int32)
+    args, kw = (), {}
+    rows = {"vlm": cfg.num_vision_tokens,
+            "audio": cfg.encoder_seq}.get(cfg.family)
+    if rows:
+        emb = (rng.standard_normal((2, rows, cfg.d_model)) * 0.02).astype(
+            np.float32)
+        args, kw = ((emb,), {}) if cfg.family == "audio" else \
+            ((), {"vision_embeds": emb})
+    want, _ = jitted(jax_get_model(jcfg).forward, jcfg)(
+        tree, J(toks), *map(J, args), **{k: J(v) for k, v in kw.items()})
     with torch.no_grad():
-        got, _ = transformer.forward(cfg, torch_params(tree), T(toks))
+        got, _ = get_model(cfg).forward(
+            cfg, torch_params(tree), T(toks), *map(T, args),
+            **{k: T(v) for k, v in kw.items()})
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4,
                                rtol=1e-4)
 
@@ -173,8 +214,8 @@ def test_forward_logits_equal_the_reference(arch):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_init_params_has_the_reference_tree(arch):
     cfg = reduced_torch(arch)
-    got = transformer.init_params(cfg, torch.Generator().manual_seed(0),
-                                  "cpu")
+    got = get_model(cfg).init_params(cfg, torch.Generator().manual_seed(0),
+                                     "cpu")
     want = jax_params(reduced_jax(arch))
     shapes = lambda t: [tuple(a.shape) for a in jax.tree_util.tree_leaves(
         jax.tree_util.tree_map(np.asarray, t))]

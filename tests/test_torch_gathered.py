@@ -43,8 +43,8 @@ from repro_torch.kernels.paged_attention import (paged_decode_attention,
 from repro_torch.models import attention as attn
 from repro_torch.models import transformer
 from repro_torch.tree import tree_leaves, tree_map
-from tests.test_torch_harness import (jax_params, reduced_jax, reduced_torch,
-                                      torch_params)
+from tests.test_torch_harness import (jax_params, jitted, reduced_jax,
+                                      reduced_torch, torch_params)
 
 ATOL, RTOL = 1e-5, 1e-5
 T = torch.from_numpy
@@ -351,15 +351,16 @@ def test_prefill_decode_and_chunk_logits(arch, kv_quant):
     toks = np.random.default_rng(14).integers(0, 128, (1, 9)).astype(
         np.int32)
     jc = jtransformer.init_cache(jcfg, 1, 16)
-    jl, jc = jtransformer.prefill(jcfg, tree, J(toks), jc)
+    jl, jc = jitted(jtransformer.prefill, jcfg)(tree, J(toks), jc)
+    jdecode = jitted(jtransformer.decode_step, jcfg, kv_quant=kv_quant)
+    jchunk = jitted(jtransformer.prefill_chunk, jcfg, kv_quant=kv_quant)
     c = transformer.init_cache(cfg, 1, 16, "cpu")
     with torch.no_grad():
         l, c = transformer.prefill(cfg, params, T(toks), c)
         close(l, jl)
         for i in range(3):
             t = np.array([[i + 3]], np.int32)
-            jl, jc = jtransformer.decode_step(jcfg, tree, jc, J(t), 9 + i,
-                                              kv_quant=kv_quant)
+            jl, jc = jdecode(tree, jc, J(t), 9 + i)
             l, c = transformer.decode_step(cfg, params, c, T(t), 9 + i,
                                            kv_quant=kv_quant)
             close(l, jl)
@@ -367,8 +368,7 @@ def test_prefill_decode_and_chunk_logits(arch, kv_quant):
         c = transformer.init_cache(cfg, 1, 16, "cpu")
         for st in (0, 4, 8):
             ch = toks[:, st:st + 4]
-            jl, jc = jtransformer.prefill_chunk(jcfg, tree, jc, J(ch), st,
-                                                kv_quant=kv_quant)
+            jl, jc = jchunk(tree, jc, J(ch), st)
             l, c = transformer.prefill_chunk(cfg, params, c, T(ch), st,
                                              kv_quant=kv_quant)
             close(l, jl)
@@ -506,7 +506,8 @@ def test_bf16_prefill_and_decode_logits(arch):
     toks = np.random.default_rng(18).integers(0, 128, (1, 20)).astype(
         np.int32)
     jc = jtransformer.init_cache(jcfg, 1, 32)
-    jl, jc = jtransformer.prefill(jcfg, tree, J(toks), jc)
+    jl, jc = jitted(jtransformer.prefill, jcfg)(tree, J(toks), jc)
+    jdecode = jitted(jtransformer.decode_step, jcfg)
     c = transformer.init_cache(cfg, 1, 32, "cpu")
     with torch.no_grad():
         l, c = transformer.prefill(cfg, params, T(toks), c)
@@ -517,6 +518,5 @@ def test_bf16_prefill_and_decode_logits(arch):
                                        atol=8e-3, rtol=0)
             t = np.array([[i + 3]], np.int32)
             if i < 3:
-                jl, jc = jtransformer.decode_step(jcfg, tree, jc, J(t),
-                                                  20 + i)
+                jl, jc = jdecode(tree, jc, J(t), 20 + i)
                 l, c = transformer.decode_step(cfg, params, c, T(t), 20 + i)

@@ -8,6 +8,7 @@ The same numpy-seeded inputs go through the JAX reference and the port:
 ``tests/test_models.py::reduced``.
 """
 
+import functools
 import os
 import subprocess
 import sys
@@ -43,6 +44,14 @@ def jax_params(cfg, seed=0):
 def torch_params(tree):
     """The same tree as port params on the CPU."""
     return params_from_numpy(tree, "cpu")
+
+
+def jitted(fn, cfg, **static):
+    """The reference's step function ``fn(cfg, *args, **static)`` under
+    one ``jax.jit``.  Called eagerly it compiles every primitive shape by
+    shape, seconds a call at the reduced widths; the values are the same
+    function's (the tests hold the port to them within their tolerance)."""
+    return jax.jit(functools.partial(fn, cfg, **static))
 
 
 def unit_scale_mlp(tree):
@@ -96,7 +105,10 @@ _PORT_MODULES = {
     "repro_torch.runtime.prefix_index", "repro_torch.runtime.drafter",
     "repro_torch.runtime.autotune", "repro_torch.runtime.telemetry",
     "repro_torch.data.pipeline", "repro_torch.train.optimizer",
-    "repro_torch.ckpt.checkpoint",
+    "repro_torch.ckpt.checkpoint", "repro_torch.models.ssm",
+    "repro_torch.models.rglru", "repro_torch.models.encdec",
+    "repro_torch.configs.mamba2_780m", "repro_torch.configs.recurrentgemma_2b",
+    "repro_torch.configs.paligemma_3b", "repro_torch.configs.whisper_large_v3",
 }
 
 
@@ -110,5 +122,5 @@ def test_port_imports_neither_jax_nor_repro():
                          timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
     names, bad = out.stdout.split("|")
-    assert _PORT_MODULES <= set(names.split()) and len(names.split()) >= 41
+    assert _PORT_MODULES <= set(names.split()) and len(names.split()) >= 48
     assert bad.strip() == "[]", out.stdout

@@ -53,8 +53,9 @@ from repro_torch.runtime.weight_store import WeightStore
 from repro_torch.tree import params_from_numpy, tree_leaves, tree_map
 from tests.harness import MIXED, assert_tokens_identical, mixed_requests
 from tests.harness import run_trace as jax_serve
-from tests.test_torch_harness import (jax_params, reduced_jax, reduced_torch,
-                                      torch_params, unit_scale_mlp)
+from tests.test_torch_harness import (jax_params, jitted, reduced_jax,
+                                      reduced_torch, torch_params,
+                                      unit_scale_mlp)
 from tests.test_torch_paged_attention import paged_case
 
 ATOL, RTOL = 1e-5, 1e-4
@@ -296,15 +297,16 @@ def test_mixed_step_logits_match_prefill_and_decode():
     prompts = [rng.integers(0, 128, n) for n in (7, 3)]
     n_dec, page, pps = 3, 4, 4
     want_prefill, want_dec, dec_toks = [], [], []
+    jprefill = jitted(jtransformer.prefill, jcfg)
+    jdecode = jitted(jtransformer.decode_step, jcfg)
     for p in prompts:
         cache = jtransformer.init_cache(jcfg, 1, page * pps)
-        logits, cache = jtransformer.prefill(jcfg, tree,
-                                             jnp.asarray(p[None]), cache)
+        logits, cache = jprefill(tree, jnp.asarray(p[None]), cache)
         want_prefill.append(np.asarray(logits[0, -1]))
         toks, rows = [int(np.argmax(logits[0, -1]))], []
         for i in range(n_dec):
-            logits, cache = jtransformer.decode_step(
-                jcfg, tree, cache, jnp.asarray([[toks[-1]]]), len(p) + i)
+            logits, cache = jdecode(
+                tree, cache, jnp.asarray([[toks[-1]]]), len(p) + i)
             rows.append(np.asarray(logits[0, -1]))
             toks.append(int(np.argmax(logits[0, -1])))
         want_dec.append(rows)

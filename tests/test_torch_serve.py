@@ -35,8 +35,9 @@ from repro_torch.runtime.decode_cache import DecodeTileCache
 from repro_torch.runtime.weight_store import WeightStore
 from tests.harness import MIXED, assert_tokens_identical, mixed_requests
 from tests.harness import run_trace as jax_serve
-from tests.test_torch_harness import (jax_params, reduced_jax, reduced_torch,
-                                      torch_params, unit_scale_mlp)
+from tests.test_torch_harness import (jax_params, jitted, reduced_jax,
+                                      reduced_torch, torch_params,
+                                      unit_scale_mlp)
 
 # ---------------------------------------------------------------------------
 # WeightStore parity
@@ -120,15 +121,16 @@ def test_mixed_step_logits_match_prefill_and_decode():
     n_dec, page, pps = 3, 4, 4
     # reference: each request alone, monolithic prefill then decode steps
     want_prefill, want_dec, dec_toks = [], [], []
+    jprefill = jitted(jtransformer.prefill, jcfg)
+    jdecode = jitted(jtransformer.decode_step, jcfg)
     for p in prompts:
         cache = jtransformer.init_cache(jcfg, 1, page * pps)
-        logits, cache = jtransformer.prefill(jcfg, tree,
-                                             jnp.asarray(p[None]), cache)
+        logits, cache = jprefill(tree, jnp.asarray(p[None]), cache)
         want_prefill.append(np.asarray(logits[0, -1]))
         toks, rows = [int(np.argmax(logits[0, -1]))], []
         for i in range(n_dec):
-            logits, cache = jtransformer.decode_step(
-                jcfg, tree, cache, jnp.asarray([[toks[-1]]]),
+            logits, cache = jdecode(
+                tree, cache, jnp.asarray([[toks[-1]]]),
                 len(p) + i)
             rows.append(np.asarray(logits[0, -1]))
             toks.append(int(np.argmax(logits[0, -1])))
