@@ -89,8 +89,10 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` with nvcc
   notes printed), checks the Huffman decode's launches and every
   compressed matrix shape bit for bit, paligemma's attention launches
   against its decode steps, a second run's tokens and n-gram
-  speculation's on the recurrent archs, profiles one warm batch, and
-  serves each tiny config on card and CPU to the same tokens;
+  speculation's on the recurrent archs (which must propose drafts;
+  mamba2's in f32, with draft-model speculation beside it:
+  ``SPEC_F32_LAYERS``), profiles one warm batch, and serves each tiny
+  config on card and CPU to the same tokens;
 * the paper's BNN: times the int8 and binary mma.sync probe, prints the
   fused and contraction kernels' registers, spills, shared memory and
   launch plans, holds the binarize-pack ((M, K) rows and 3x3 patches
@@ -116,7 +118,18 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` with nvcc
   card, deploys through the kernels (launches counted), meets the
   reference workflow's assertions (``tests/test_system.py::
   TestPaperWorkflow``) and writes a compressed checkpoint, which is
-  restored and redeployed to the same predictions.
+  restored and redeployed to the same predictions;
+* the LM trainer (run last, on a world of one rank: NCCL for the card's
+  tensors, gloo for the CPU's): gemma2-2b at its published widths and
+  full depth (26 layers, bf16, remat) trains a few steps of
+  ``build_train_step`` on ``SyntheticLM`` (finite losses, ms/step by
+  events, peak memory, a profiled step's device busy and top kernels,
+  beside the step's bf16 floor from ``lm_train_bound``); the tiny gemma2
+  takes one step on card and CPU to the same loss, gradients and
+  params, the launcher's supervised run killed after a checkpoint
+  resumes to the unbroken run's losses, a bf16 state checkpointed by
+  the Supervisor restores bit for bit, and the 1-bit and int8
+  compressed DP step over NCCL equals gloo on the CPU.
 
 Each phase prints its seconds.  The last two lines of standard output
 are one JSON object per kernel (``{"kernels": [...]}``; the GQA kernel at
@@ -153,7 +166,8 @@ from repro_torch.ckpt import checkpoint as ckpt  # noqa: E402
 from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.core import (  # noqa: E402
     bitpack, clustering, compression, frequency, huffman)
-from repro_torch.data.pipeline import SyntheticImages  # noqa: E402
+from repro_torch.data.pipeline import (  # noqa: E402
+    SyntheticImages, SyntheticLM)
 from repro_torch.kernels import _build, kv_codec, ops, ref  # noqa: E402
 from repro_torch.kernels.binarize_pack import (  # noqa: E402
     binarize_pack, binarize_pack_patches)
@@ -166,8 +180,16 @@ from repro_torch.kernels.huffman_decode import (  # noqa: E402
 from repro_torch.kernels.paged_attention import (  # noqa: E402
     decode_pool, gqa_kernel_info, mla_kernel_info, paged_decode_attention,
     paged_mixed_attention, paged_mixed_attention_plain, sm_count)
+from repro_torch.dist.compression_comm import (  # noqa: E402
+    init_error_feedback)
+from repro_torch.dist.fault import FaultConfig, Supervisor  # noqa: E402
+from repro_torch.launch import steps as steps_mod  # noqa: E402
+from repro_torch.launch import train as train_launch  # noqa: E402
+from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
 from repro_torch.launch.serve import (  # noqa: E402
     TOO_DEEP_FOR_ONE_CARD, codec_report, cut_depth, init_params, tiny_config)
+from repro_torch.launch.train import to_batch  # noqa: E402
+from repro_torch.models.api import get_model  # noqa: E402
 from repro_torch.models import reactnet as rn  # noqa: E402
 from repro_torch.runtime import (  # noqa: E402
     NULL_TELEMETRY, Request, Scheduler, ServeEngine, ServeMetrics, SlotPool,
@@ -179,9 +201,10 @@ from repro_torch.runtime.scheduler import SLOT_LEN_QUANTUM  # noqa: E402
 from repro_torch.runtime.telemetry import (  # noqa: E402
     PID_ENGINE, PID_REQUEST)
 from repro_torch.train import optimizer as opt  # noqa: E402
+from repro_torch.train.optimizer import OptConfig  # noqa: E402
 from repro_torch.tree import (  # noqa: E402
     tree_leaves, tree_map, tree_map_with_path)
-from profile_reactnet import profile_forward  # noqa: E402
+from profile_reactnet import SESSIONS, profile_forward  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 F32_OPS_PER_S = 67e12            # H100 SXM CUDA cores, an FMA counted as 2
@@ -248,8 +271,8 @@ ARCH_LAYERS = {
 # the archs with recurrent state or a multimodal prefix, served beside the
 # others: depth cut to these many layers (published widths), and why
 STATE_ARCH_LAYERS = {
-    "mamba2-780m": (48, "full depth: about 1.6 GB of bf16 weights and no "
-                        "dense MLP to register"),
+    "mamba2-780m": (16, "one block kind, so 16 of the 48 run every module; "
+                        "its serve runs and profile a third as long"),
     "recurrentgemma-2b": (5, "one (rglru, rglru, attn_local) repeat and its "
                              "two suffix rglru blocks run every module; "
                              "registration compresses each 2560x7680 MLP "
@@ -260,6 +283,11 @@ STATE_ARCH_LAYERS = {
                             "registration compresses each 1280x5120 MLP "
                             "matrix on the host, 128 at full depth"),
 }
+# the recurrent archs whose speculation is held in f32 (TF32 off) at
+# published widths, depth cut to these many layers, and not in bf16: their
+# bf16 verify block and one-token update round differently, and greedy
+# ties between bf16 logits then break either way (ROADMAP Queue 3)
+SPEC_F32_LAYERS = {"mamba2-780m": 16}
 # the paths their tiny configs serve on card and CPU: what each asks for
 # that the arch lacks is downgraded on both devices alike (the codec is
 # left out: the encoder-decoder has no codec path, in the reference too)
@@ -2633,6 +2661,358 @@ def phase_paper_workflow(dev) -> None:
 
 
 # ---------------------------------------------------------------------------
+# the LM trainer: gemma2-2b at full width and depth, tiny card vs CPU
+# ---------------------------------------------------------------------------
+
+BF16_OPS_PER_S = 989e12          # H100 SXM tensor cores, bf16 dense
+LM_TRAIN_ARCH = "gemma2-2b"
+LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS = 8, 256, 5
+# the launcher's optimizer for a run of LM_TRAIN_STEPS steps
+LM_TRAIN_OC = OptConfig(lr=3e-3, warmup_steps=20,
+                        total_steps=LM_TRAIN_STEPS)
+# one step of the tiny config (f32, TF32 off), card vs CPU: the loss and
+# each gradient leaf within TRAIN_TOL x the leaf's largest element; an
+# updated param within Adam's bound for that gradient error (see
+# ``_adam_bound``)
+SMALL_LM_BATCH, SMALL_LM_SEQ = 4, 64
+SMALL_LM_OC = OptConfig(lr=2e-2, warmup_steps=5, total_steps=60)
+
+
+def lm_train_bound(cfg, batch: int, seq: int) -> tuple:
+    """(operations of one forward, bytes) of a train step of a dense
+    decoder (gemma2's blocks, a tied head): the matmuls' 2 x tokens x
+    params of the blocks' projections and the head, plus the causal
+    score and value products; a step needs 3 forwards' worth (forward,
+    backward 2x) and the remat schedule does 4 (the recompute of every
+    block and of the chunked CE's head); bytes: the params (bf16) and the
+    two f32 moments each read and written once, and the batch."""
+    d, h, kh, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    attn = d * h * hd + 2 * d * kh * hd + h * hd * d
+    mlp = (3 if cfg.mlp_act in ("swiglu", "geglu") else 2) * d * cfg.d_ff
+    tokens = batch * seq
+    pairs = seq * (seq + 1) // 2
+    fwd = 2 * tokens * (cfg.num_layers * (attn + mlp)
+                        + d * cfg.vocab_size) \
+        + cfg.num_layers * 2 * 2 * batch * h * hd * pairs
+    n_params = cfg.num_layers * (attn + mlp + 4 * d) + cfg.vocab_size * d + d
+    nbytes = n_params * 2 * (2 + 4 + 4) + 2 * tokens * 4
+    return fwd, nbytes
+
+
+def phase_train_lm(dev) -> None:
+    """gemma2-2b at its published widths and full depth (26 layers, bf16,
+    remat on) trains LM_TRAIN_STEPS steps of ``build_train_step`` on
+    ``SyntheticLM`` from seed 0 (the launcher's optimizer): every loss
+    finite; warm ms/step by CUDA events, peak memory, one profiled step's
+    device busy and top kernels, beside the step's bf16 floor."""
+    cfg = get_config(LM_TRAIN_ARCH)
+    mesh = make_host_mesh(device=dev)
+    step_fn, _ = steps_mod.build_train_step(cfg, mesh, LM_TRAIN_OC)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    state = steps_mod.init_train_state(
+        cfg, mesh, torch.Generator(device=dev).manual_seed(0), device=dev)
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    n_params = sum(t.numel() for t in tree_leaves(state["params"]))
+    state_gb = sum(t.numel() * t.element_size()
+                   for t in tree_leaves(state)) / 1e9
+    data = SyntheticLM(cfg.vocab_size, LM_TRAIN_BATCH, LM_TRAIN_SEQ, seed=0)
+    batches = [to_batch(cfg, data.batch(i), dev)
+               for i in range(LM_TRAIN_STEPS + SESSIONS)]
+    losses, step_ms = [], []
+    for i in range(LM_TRAIN_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, loss = step_fn(state, batches[i])
+        end.record()
+        losses.append(float(loss))
+        step_ms.append(start.elapsed_time(end))
+        if not np.isfinite(losses[-1]):
+            fail(f"train {LM_TRAIN_ARCH}: step {i} loss {losses[-1]}")
+    for path, leaf in _with_paths(state["params"]):
+        if not torch.isfinite(leaf).all():
+            fail(f"train {LM_TRAIN_ARCH}: {path} not finite after "
+                 f"{LM_TRAIN_STEPS} steps")
+    if int(state["opt"]["step"]) != LM_TRAIN_STEPS:
+        fail(f"train {LM_TRAIN_ARCH}: optimizer step "
+             f"{int(state['opt']['step'])}")
+    peak = torch.cuda.max_memory_allocated()
+    warm = step_ms[2:]
+    warm_ms = sum(warm) / len(warm)
+    fwd, nbytes = lm_train_bound(cfg, LM_TRAIN_BATCH, LM_TRAIN_SEQ)
+    floor_ms, remat_ms = (max(n * fwd / BF16_OPS_PER_S,
+                              nbytes / HBM_BYTES_PER_S) * 1e3 for n in (3, 4))
+    print(f"train {LM_TRAIN_ARCH}: {cfg.num_layers} layers, d "
+          f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads x "
+          f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+          f"{cfg.dtype}, remat {cfg.remat}; {n_params} params, state "
+          f"(params + AdamW moments) {state_gb:.2f} GB, drawn in "
+          f"{init_s:.2f}s; batch {LM_TRAIN_BATCH} x {LM_TRAIN_SEQ} of "
+          f"SyntheticLM seed 0; losses {[round(x, 4) for x in losses]}")
+    print(f"train {LM_TRAIN_ARCH}: ms/step by CUDA events "
+          f"{[round(x, 2) for x in step_ms]}; warm (steps 2-"
+          f"{LM_TRAIN_STEPS - 1}) mean {warm_ms:.2f} ms; peak memory "
+          f"{peak / 2**30:.2f} GiB (max_memory_allocated); floor "
+          f"{floor_ms:.2f} ms = max({3 * fwd / 1e12:.2f} TFLOP (3 forwards) "
+          f"at {BF16_OPS_PER_S / 1e12:.0f} TFLOP/s bf16, {nbytes / 1e9:.2f} "
+          f"GB at {HBM_BYTES_PER_S / 1e12:.2f} TB/s): {floor_ms / warm_ms:.1%}"
+          f" of it; floor of the remat schedule (4 forwards, "
+          f"{4 * fwd / 1e12:.2f} TFLOP) {remat_ms:.2f} ms: "
+          f"{remat_ms / warm_ms:.1%} of it")
+    it = iter(batches[LM_TRAIN_STEPS:])
+
+    def one_step():
+        nonlocal state
+        state, loss = step_fn(state, next(it))
+        float(loss)
+
+    wall_ms, busy, rows, _ = profile_forward(one_step)
+    if not rows:
+        print("profile train step: device time not measured (the profiler "
+              "saw no CUDA kernels)")
+    else:
+        print(f"profile train {LM_TRAIN_ARCH} step (warm): wall "
+              f"{wall_ms:.1f} ms; device busy {busy:.1f} ms = "
+              f"{busy / wall_ms * 100:.1f}% of wall; kernels by device "
+              f"time:")
+        for key, ms, n in sorted(rows, key=lambda r: -r[1])[:8]:
+            print(f"  {ms:9.3f} ms  x{n:<5d} {key[:90]}")
+    del state, batches, it
+    torch.cuda.empty_cache()
+
+
+def _adam_bound(grads, lr, oc) -> list:
+    """Per leaf, how far one first AdamW step may move a param when its
+    gradient is off by TRAIN_TOL x the leaf's largest |g|: lr * eps * s d
+    / (s |g| + eps)^2 (s the global-norm clip's scale), at most 2 lr, plus
+    1e-5 of the value for the update's own rounding."""
+    norm = float(torch.sqrt(sum((g.double() ** 2).sum() for g in grads)))
+    s = min(1.0, oc.grad_clip / max(norm, 1e-9))
+    out = []
+    for g in grads:
+        d = TRAIN_TOL * float(g.abs().max())
+        moved = lr * oc.eps * s * d / (s * g.abs() + oc.eps) ** 2
+        out.append(torch.clamp(moved, max=2 * lr))
+    return out
+
+
+def _small_lm_step(dev) -> float:
+    """One ``build_train_step`` step of the tiny gemma2 from the same
+    params on the card and on the CPU: the loss and gradients within
+    TRAIN_TOL, the updated params within ``_adam_bound``."""
+    cfg = tiny_config(LM_TRAIN_ARCH)
+    api = get_model(cfg)
+    params = api.init_params(cfg, torch.Generator().manual_seed(1), "cpu")
+    data = SyntheticLM(cfg.vocab_size, SMALL_LM_BATCH, SMALL_LM_SEQ, seed=1)
+    step_fn, _ = steps_mod.build_train_step(cfg, {"data": 1, "model": 1},
+                                            SMALL_LM_OC)
+    out = {}
+    for where in ("cpu", dev):
+        p = tree_map(lambda t: t.to(where, copy=True), params)
+        batch = to_batch(cfg, data.batch(0), where)
+        _, grads = steps_mod.value_and_grad(
+            lambda q: api.loss_fn(cfg, q, batch), p)
+        state, loss = step_fn({"params": p, "opt": opt.init_state(p)}, batch)
+        out[str(where)] = (float(loss), [g.cpu() for g in tree_leaves(grads)],
+                           [t.cpu() for t in tree_leaves(state["params"])])
+    (lc, gc, pc), (ld, gd, pd) = out["cpu"], out[str(dev)]
+    worst = abs(ld - lc) / abs(lc)
+    if worst > TRAIN_TOL:
+        fail(f"small lm step: loss card {ld} vs CPU {lc}")
+    for i, (a, b) in enumerate(zip(gd, gc)):
+        scale = max(float(b.abs().max()), 1e-30)
+        err = float((a - b).abs().max())
+        worst = max(worst, err / scale)
+        if err > TRAIN_TOL * scale:
+            fail(f"small lm step: gradient leaf {i} card vs CPU {err} > "
+                 f"{TRAIN_TOL} x {scale}")
+    lr = float(opt.lr_schedule(SMALL_LM_OC)(torch.tensor(1)))
+    moved = 0.0
+    for i, (a, b, bound) in enumerate(zip(pd, pc,
+                                          _adam_bound(gc, lr, SMALL_LM_OC))):
+        excess = (a - b).abs() - bound - 1e-5 * b.abs() - 1e-7
+        if float(excess.max()) > 0:
+            fail(f"small lm step: updated leaf {i} card vs CPU beyond "
+                 f"Adam's bound by {float(excess.max())}")
+        moved = max(moved, float((a - b).abs().max()))
+    print(f"small lm train step: tiny {LM_TRAIN_ARCH} (f32, TF32 off), one "
+          f"build_train_step step card vs CPU: loss {ld:.6f} vs {lc:.6f}; "
+          f"loss and every gradient leaf within {worst:.3e} <= {TRAIN_TOL} "
+          f"of the leaf's largest element; updated params within Adam's "
+          f"bound (max |diff| {moved:.3e}, lr {lr:.3e})")
+    return worst
+
+
+def _resumed_run(tmp, dev) -> None:
+    """``launch.train.main`` on the card: an unbroken supervised run and
+    one that dies after its checkpoint, resumed: the same losses after the
+    restart, under deterministic algorithms (the embedding's and the gold
+    logit gather's backward accumulate in a fixed order), bit for bit or
+    failing beyond 1e-5 relative."""
+    argv = ["--device", dev.type, "--steps", "12", "--batch", "4", "--seq",
+            "32", "--ckpt-every", "5", "--log-every", "6"]
+    real = Supervisor.run_step
+
+    def dies_at_8(self, step_fn, state, batch, step):
+        if step == 8:
+            self._join()
+            raise RuntimeError("host lost")
+        return real(self, step_fn, state, batch, step)
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        whole = train_launch.main(argv + ["--ckpt-dir", f"{tmp}/a"])
+        Supervisor.run_step = dies_at_8
+        try:
+            train_launch.main(argv + ["--ckpt-dir", f"{tmp}/b"])
+            fail("small lm resume: the broken run did not break")
+        except RuntimeError as e:
+            if "host lost" not in str(e):
+                raise
+        finally:
+            Supervisor.run_step = real
+        resumed = train_launch.main(argv + ["--ckpt-dir", f"{tmp}/b"])
+    finally:
+        torch.use_deterministic_algorithms(False)
+    diff = max(abs(a - b) / abs(b) for a, b in zip(resumed, whole[6:]))
+    if len(resumed) != 6 or diff > 1e-5:
+        fail(f"small lm resume: losses after the restart {resumed} vs the "
+             f"unbroken run's {whole[6:]}")
+    print(f"small lm resume: a 12-step supervised run on the card, "
+          f"checkpoint every 5, killed at step 8 and resumed from step 5: "
+          f"losses of steps 6-11 "
+          + ("equal the unbroken run's bit for bit" if diff == 0 else
+             f"within {diff:.3e} (relative) of the unbroken run's")
+          + f" ({[round(x, 6) for x in resumed]})")
+
+
+def _bf16_checkpoint(tmp, dev) -> None:
+    """The tiny gemma2 in bf16 on the card: three supervised steps of
+    ``build_train_step``, checkpointed (async) after each; a new
+    Supervisor restores the state onto the card bit for bit in its dtypes,
+    and one more step from it equals the step from the live state (under
+    deterministic algorithms, as ``_resumed_run``)."""
+    cfg = tiny_config(LM_TRAIN_ARCH).scaled(dtype="bfloat16")
+    step_fn, _ = steps_mod.build_train_step(cfg, {"data": 1, "model": 1},
+                                            SMALL_LM_OC)
+    state = steps_mod.init_train_state(
+        cfg, None, torch.Generator(device=dev).manual_seed(3), device=dev)
+    data = SyntheticLM(cfg.vocab_size, SMALL_LM_BATCH, SMALL_LM_SEQ, seed=3)
+    sup = Supervisor(FaultConfig(ckpt_dir=f"{tmp}/bf16", ckpt_every=1))
+    for step in range(3):
+        state, _ = sup.run_step(step_fn, state,
+                                to_batch(cfg, data.batch(step), dev), step)
+        sup.maybe_save(state, step)
+    sup._join()
+    fresh = steps_mod.init_train_state(
+        cfg, None, torch.Generator(device=dev).manual_seed(4), device=dev)
+    restored, start = Supervisor(sup.cfg).maybe_restore(fresh)
+    dtypes = collections.Counter(str(t.dtype).split(".")[-1]
+                                 for t in tree_leaves(state))
+    for (path, a), b in zip(_with_paths(restored), tree_leaves(state)):
+        if a.device != b.device or a.dtype != b.dtype or \
+                not torch.equal(a, b):
+            fail(f"bf16 checkpoint: {path} restored as {a.dtype} on "
+                 f"{a.device}, not equal to the saved {b.dtype} leaf")
+    batch = to_batch(cfg, data.batch(3), dev)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        state, want = step_fn(state, batch)
+        restored, got = step_fn(restored, batch)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    if start != 3 or float(got) != float(want) or not all(
+            torch.equal(a, b) for a, b in zip(tree_leaves(restored),
+                                              tree_leaves(state))):
+        fail(f"bf16 checkpoint: resumed at {start}, the next step's loss "
+             f"{float(got)} vs the live state's {float(want)}")
+    print(f"small lm bf16 checkpoint: tiny {LM_TRAIN_ARCH} in bf16, three "
+          f"supervised steps on the card checkpointed each step, restored "
+          f"by a new Supervisor bit for bit ({dict(dtypes)} leaves); the "
+          f"next step from it equals the live state's (loss {float(got):.6f})")
+
+
+def _compressed_dp(dev) -> None:
+    """``build_compressed_dp_train_step`` at one rank over NCCL (the card)
+    and over gloo (the CPU), one step in each mode from the same state:
+    the loss within TRAIN_TOL; params within 1e-5 and the error feedback
+    within the gradient check's TRAIN_TOL x the leaf's largest |g|
+    wherever the compressed level is not decided by float noise, and
+    within 2 lr (params) or 2 scales (feedback) where it is.  A gradient off by
+    TRAIN_TOL x the leaf's largest |g| may flip a sign where |g| is below
+    that (onebit), or an int8 level where |g| / scale is within 127 x
+    TRAIN_TOL of a rounding midpoint (int8)."""
+    cfg = tiny_config(LM_TRAIN_ARCH)
+    api = get_model(cfg)
+    params = api.init_params(cfg, torch.Generator().manual_seed(2), "cpu")
+    data = SyntheticLM(cfg.vocab_size, SMALL_LM_BATCH, SMALL_LM_SEQ, seed=2)
+    loss_fn = lambda p, b: api.loss_fn(cfg, p, b)  # noqa: E731
+    mesh = make_host_mesh(device=dev)
+    lr = float(opt.lr_schedule(SMALL_LM_OC)(torch.tensor(1)))
+    _, grads = steps_mod.value_and_grad(
+        loss_fn, params, to_batch(cfg, data.batch(0), "cpu"))
+    for mode in ("onebit", "int8"):
+        out = {}
+        for where in ("cpu", dev):
+            step_fn, _ = steps_mod.build_compressed_dp_train_step(
+                loss_fn, mesh, SMALL_LM_OC, mode=mode)
+            p = tree_map(lambda t: t.to(where), params)
+            state = {"params": p, "opt": opt.init_state(p),
+                     "ef": init_error_feedback(p)}
+            state, loss = step_fn(state, to_batch(cfg, data.batch(0), where))
+            out[str(where)] = (float(loss), state)
+        (lc, sc), (ld, sd) = out["cpu"], out[str(dev)]
+        if abs(ld - lc) > TRAIN_TOL * abs(lc):
+            fail(f"compressed dp {mode}: loss card {ld} vs CPU {lc}")
+        noisy = 0
+        for g, a, b, ea, eb in zip(
+                tree_leaves(grads), tree_leaves(sd["params"]),
+                tree_leaves(sc["params"]), tree_leaves(sd["ef"]),
+                tree_leaves(sc["ef"])):
+            a, ea = a.cpu(), ea.cpu()
+            if mode == "onebit":
+                scale = float(g.abs().mean())
+                noise = g.abs() <= TRAIN_TOL * float(g.abs().max())
+            else:
+                scale = float(g.abs().max()) / 127
+                frac = (g.abs() / max(scale, 1e-30)) % 1.0
+                noise = (frac - 0.5).abs() <= 127 * TRAIN_TOL
+            # the feedback carries the gradient's own error (v - level)
+            for got, want, slack, atol in (
+                    (a, b, 2 * lr, 1e-7),
+                    (ea, eb, 2 * scale, TRAIN_TOL * float(g.abs().max()))):
+                diff = (got - want).abs()
+                tol = 1e-5 * want.abs() + atol
+                bad = diff > tol
+                noisy += int((bad & noise).sum())
+                if (bad & ~noise).any() or float(diff.max()) > slack + 1e-6:
+                    fail(f"compressed dp {mode}: card vs CPU differ by "
+                         f"{float(diff.max())} beyond float noise")
+        print(f"compressed dp {mode}: one step of build_compressed_dp_train_"
+              f"step at one rank, NCCL on the card vs gloo on the CPU: loss "
+              f"{ld:.6f} vs {lc:.6f}; params and error feedback within "
+              f"tolerance except {noisy} elements whose level float noise "
+              f"decides (within 2 lr / 2 scales there)")
+
+
+def phase_small_train_lm(dev) -> None:
+    """The tiny gemma2 (f32, TF32 off): one train step card vs CPU; the
+    supervised launcher resumed from its checkpoint; a bf16 state through
+    the Supervisor's checkpoints; the compressed DP
+    step over NCCL against gloo.  Ends the world of one the phases
+    started."""
+    _small_lm_step(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        _resumed_run(tmp, dev)
+        _bf16_checkpoint(tmp, dev)
+    _compressed_dp(dev)
+    torch.distributed.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
 # phi3-medium-14b, h2o-danube-1.8b, gemma2-2b, mixtral-8x22b
 # ---------------------------------------------------------------------------
 
@@ -3053,7 +3433,8 @@ def phase_serve_state_arch(arch, dev) -> tuple:
     compressed archs (the store's matrices decoded bit for bit beside),
     and paligemma's attention kernel once a decode step and layer; a
     second run gives the same tokens, and so does n-gram speculation for
-    the recurrent archs; one warm batch is profiled -> (huffman launches,
+    the recurrent archs (proposing drafts; in f32 for ``SPEC_F32_LAYERS``,
+    ``phase_spec_f32``); one warm batch is profiled -> (huffman launches,
     attention launches, decoded shapes)."""
     engine = _arch_engine(arch, dev, STATE_ARCH_LAYERS)
     cfg, label = engine.cfg, f"serve {arch}"
@@ -3124,20 +3505,65 @@ def phase_serve_state_arch(arch, dev) -> tuple:
           f"x{prof['attn_launches']}, one warm materialize "
           f"{prof['mat_ms']:.1f} ms (profiled run and its report "
           f"{time.monotonic() - t1:.1f}s)")
-    if cfg.family in ("ssm", "hybrid"):
+    if cfg.family in ("ssm", "hybrid") and arch not in SPEC_F32_LAYERS:
         engine.metrics = ServeMetrics()
         spec, wall3, _ = _serve(engine, prompts, emit=notes.append,
                                 speculate="ngram", draft_k=DRAFT_K)
         ms = engine.metrics
         if spec != toks:
             fail(f"{label} ngram: other tokens than the plain run's")
+        if not ms.spec_draft_tokens:
+            fail(f"{label} ngram: no draft proposed, so the token check "
+                 f"held nothing")
         print(f"{label} ngram (k={DRAFT_K}): tokens identical to the plain "
               f"run's; {ms.spec_accepted_tokens}/{ms.spec_draft_tokens} "
               f"drafts accepted, {ms.decode_steps} verify steps, {wall3:.2f}s"
               f", {ms.ms_per_token():.2f} ms/step")
     del engine
     torch.cuda.empty_cache()
+    if arch in SPEC_F32_LAYERS:
+        phase_spec_f32(arch, dev)
     return n_dec, n_attn, shapes
+
+
+def phase_spec_f32(arch, dev) -> None:
+    """``arch`` at its published widths in f32 (TF32 off), depth cut to
+    ``SPEC_F32_LAYERS``, random weights from seed 0: greedy decoding and
+    speculation, n-gram and draft-model (which proposes DRAFT_K tokens
+    every round, so every verify block resumes the recurrent state and
+    rolls back what it rejects), give the same tokens, and the draft model
+    proposed drafts.  In bf16 the two paths round differently (the
+    reference's resume branch contracts the carried f32 state in the
+    activations' dtype, its one-token update in f32), and greedy ties
+    between bf16 logits break either way (ROADMAP Queue 3)."""
+    t0 = time.monotonic()
+    cfg = cut_depth(get_config(arch), SPEC_F32_LAYERS[arch]).scaled(
+        dtype="float32")
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dev)
+    engine = ServeEngine(cfg, params, device=dev)
+    del params
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in SERVE_PROMPTS]
+    notes = []
+    plain, _, _ = _serve(engine, prompts, emit=notes.append)
+    label, runs = f"serve {arch} f32 ({cfg.num_layers} layers)", []
+    for spec in ("ngram", "draft"):
+        engine.metrics = ServeMetrics()
+        toks, wall, _ = _serve(engine, prompts, emit=notes.append,
+                               speculate=spec, draft_k=DRAFT_K)
+        m = engine.metrics
+        if toks != plain:
+            fail(f"{label} {spec}: other tokens than the plain run's")
+        runs.append(f"{spec} {m.spec_accepted_tokens}/{m.spec_draft_tokens} "
+                    f"drafts accepted in {m.spec_rounds} rounds, {wall:.2f}s")
+        if spec == "draft" and not m.spec_draft_tokens:
+            fail(f"{label} draft: no draft proposed")
+    print(f"{label}: greedy tokens of {len(prompts)} requests identical "
+          f"with speculation off, ngram and draft (k={DRAFT_K}): "
+          f"{'; '.join(runs)} ({time.monotonic() - t0:.1f}s)")
+    del engine
+    torch.cuda.empty_cache()
 
 
 def phase_state_archs(dev, launches: dict) -> dict:
@@ -3681,6 +4107,8 @@ def main() -> None:
     torch.cuda.empty_cache()
     timed("train reactnet", phase_train_reactnet, dev)
     timed("paper workflow", phase_paper_workflow, dev)
+    timed("train lm", phase_train_lm, dev)
+    timed("small train lm", phase_small_train_lm, dev)
     for k in kernels:
         k["launches"] = launches[k["name"]]
     print(f"total {time.monotonic() - t_start:.1f}s; gpu: {smi}")

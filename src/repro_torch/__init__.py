@@ -17,12 +17,13 @@ def resolve_device(device) -> torch.device:
 
     ``"cuda"`` (the default of every entry point) needs a card: with none
     this raises rather than carrying on on the CPU.  Only an explicit
-    ``"cpu"`` runs the plain versions."""
+    ``"cpu"`` runs the plain versions; ``"meta"`` gives shapes and dtypes
+    without storage (``launch.steps.train_state_specs``)."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "device 'cuda' requested but torch.cuda.is_available() is "
             "False; pass device='cpu' to run the plain PyTorch versions")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {device!r}")
     return dev

@@ -1,5 +1,5 @@
 """Atomic, async checkpointing of tensor trees (port of
-``repro.ckpt.checkpoint``, single host, no sharding).
+``repro.ckpt.checkpoint``; single-host files, sharded restore).
 
 Layout of one checkpoint (the reference's, so either package restores
 what the other saved):
@@ -18,6 +18,11 @@ only after everything is flushed, so a torn write is never restored.
 leaves) in storage: lossless in the binary domain, no clustering; a
 restored latent is sign x its output channel's mean magnitude (an
 inference snapshot).
+
+``restore(..., shardings=...)`` lays each leaf out on a device mesh: every
+rank reads the saved array and keeps its own shard as a ``DTensor``
+(``DTensor.from_local`` on the placements given), so a checkpoint written
+by any number of ranks restores onto any mesh whose axes divide it.
 """
 
 from __future__ import annotations
@@ -34,11 +39,32 @@ from repro_torch.core import bitpack, compression, huffman
 from repro_torch.tree import tree_map_with_path
 
 
+# numpy has no bfloat16: a bf16 leaf is stored as its raw 2-byte words,
+# as ``np.savez`` writes the reference's ``ml_dtypes.bfloat16`` arrays,
+# under the manifest dtype "bfloat16"
+_BF16_WORDS = np.dtype("V2")
+
+
+def _to_host(leaf: torch.Tensor) -> np.ndarray:
+    t = leaf.detach().to("cpu", copy=True)
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(_BF16_WORDS)
+    return t.numpy()
+
+
+def _from_host(arr: np.ndarray, dtype_name: str) -> torch.Tensor:
+    """A stored leaf -> a CPU tensor of its saved dtype."""
+    if dtype_name == "bfloat16":
+        return torch.from_numpy(np.array(arr).view(np.int16)).view(
+            torch.bfloat16)
+    return torch.from_numpy(np.array(arr))
+
+
 def _flatten(tree) -> dict[str, np.ndarray]:
     """path -> the leaf copied to the host."""
     out = {}
     tree_map_with_path(lambda path, leaf: out.setdefault(
-        path, leaf.detach().to("cpu", copy=True).numpy()), tree)
+        path, _to_host(leaf)), tree)
     return out
 
 
@@ -57,8 +83,10 @@ def save(tree, directory: str, step: int, *, async_: bool = False,
         manifest = {"step": step, "hosts": 1, "leaves": {}, "compressed": []}
         blobs = {}
         for path, arr in flat.items():
-            manifest["leaves"][path] = {"shape": list(arr.shape),
-                                        "dtype": str(arr.dtype)}
+            manifest["leaves"][path] = {
+                "shape": list(arr.shape),
+                "dtype": "bfloat16" if arr.dtype == _BF16_WORDS
+                else str(arr.dtype)}
             if (compress_binary and arr.ndim == 4
                     and arr.dtype in (np.float32, np.float16)
                     and "w3" in path.split("/")[-1]):
@@ -104,14 +132,14 @@ def latest_step(directory: str) -> int | None:
 
 def restore(directory: str, like, *, step: int | None = None,
             device="cuda", shardings=None):
-    """Restore into the structure of ``like`` (a tree of tensors: each
-    restored leaf takes its counterpart's dtype) on ``device``.
-    Returns (tree, step)."""
-    if shardings is not None:
-        raise NotImplementedError(
-            "sharded restore waits for the port of repro.dist (shardings "
-            "on torch.distributed); pass device= instead")
-    device = resolve_device(device)
+    """Restore into the structure of ``like`` (a tree of tensors, meta
+    tensors included: each restored leaf takes its counterpart's dtype) on
+    ``device``.  ``shardings``, a tree like ``like`` of
+    ``repro_torch.dist.sharding.NamedSharding`` on a ``DeviceMesh``, makes
+    every leaf a ``DTensor`` holding this rank's shard, on the mesh's
+    device type (``device`` is then not used).  Returns (tree, step)."""
+    if shardings is None:
+        device = resolve_device(device)
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -120,6 +148,7 @@ def restore(directory: str, like, *, step: int | None = None,
     with open(os.path.join(d, "manifest.json")) as f:
         manifest = json.load(f)
     leaves_flat: dict[str, np.ndarray] = {}
+    dtypes = {path: meta["dtype"] for path, meta in manifest["leaves"].items()}
     with np.load(os.path.join(d, "host0.npz")) as blobs:
         for path, meta in manifest["leaves"].items():
             if path in manifest.get("compressed", []):
@@ -128,15 +157,51 @@ def restore(directory: str, like, *, step: int | None = None,
             else:
                 leaves_flat[path] = blobs[path]
 
+    placed = {}                         # path -> NamedSharding
+    if shardings is not None:
+        tree_map_with_path(lambda path, sh: placed.setdefault(path, sh),
+                           shardings)
+
     def leaf(path, proto):
         arr = leaves_flat[path]
         if tuple(arr.shape) != tuple(proto.shape):
             raise ValueError(f"{path}: checkpoint shape {arr.shape}, "
                              f"expected {tuple(proto.shape)}")
-        return torch.from_numpy(np.array(arr)).to(device=device,
-                                                   dtype=proto.dtype)
+        if shardings is not None:
+            return _local_shard(arr, dtypes[path], proto.dtype, placed[path])
+        return _from_host(arr, dtypes[path]).to(device=device,
+                                                dtype=proto.dtype)
 
     return tree_map_with_path(leaf, like), step
+
+
+def _local_shard(arr: np.ndarray, saved: str, dtype, sharding):
+    """This rank's block of ``arr`` under ``sharding`` as a DTensor: each
+    mesh dim that shards a tensor dim cuts it into equal blocks and keeps
+    the one at this rank's coordinate, mesh dims in order (outermost
+    first, as a multi-axis spec entry nests them)."""
+    from torch.distributed.tensor import DTensor, Shard
+    mesh = sharding.mesh
+    placements = sharding.placements
+    coord = mesh.get_coordinate()
+    local = arr
+    for mdim, pl in enumerate(placements):
+        if isinstance(pl, Shard):
+            n = mesh.size(mdim)
+            if local.shape[pl.dim] % n:
+                raise ValueError(f"dim {pl.dim} of {arr.shape} does not "
+                                 f"split over {n} ranks")
+            step = local.shape[pl.dim] // n
+            idx = [slice(None)] * local.ndim
+            idx[pl.dim] = slice(coord[mdim] * step,
+                                (coord[mdim] + 1) * step)
+            local = local[tuple(idx)]
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if mesh.device_type == "cuda" else torch.device("cpu"))
+    t = _from_host(local, saved).to(device=dev, dtype=dtype)
+    whole = torch.empty(arr.shape, device="meta")
+    return DTensor.from_local(t, mesh, placements, run_check=False,
+                              shape=whole.shape, stride=whole.stride())
 
 
 def _decode_w3(blobs, path: str, shape: tuple) -> np.ndarray:

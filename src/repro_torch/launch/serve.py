@@ -86,17 +86,11 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs import base as cfgs
 from repro_torch.kernels import kv_codec as kvc
+from repro_torch.launch.train import TINY_OVERRIDES, tiny_config  # noqa: F401
 from repro_torch.models.api import get_model
 from repro_torch.runtime import (Scheduler, ServeEngine, Telemetry,
                                  parse_prom, recommend_store_capacity)
 from repro_torch.runtime.decode_cache import POLICIES
-
-TINY_OVERRIDES = dict(
-    num_layers=2, scan_repeats=2, prefix_kinds=(), suffix_kinds=(),
-    d_model=128, num_heads=4, num_kv_heads=2, head_dim=32, d_ff=256,
-    vocab_size=512, dtype="float32", window=64,
-)
-
 
 # archs whose full depth does not fit one card, and why
 TOO_DEEP_FOR_ONE_CARD = {
@@ -104,39 +98,6 @@ TOO_DEEP_FOR_ONE_CARD = {
                         "80 GB on one H100",
     "mixtral-8x22b": "141B parameters, about 282 GB in bf16, against 80 GB "
                      "on one H100"}
-
-
-def tiny_config(arch: str):
-    """The reference's ``--scale tiny`` config (``repro.launch.train``'s
-    overrides)."""
-    cfg = cfgs.get_config(arch)
-    over = dict(TINY_OVERRIDES)
-    if cfg.family == "ssm":
-        over.update(num_heads=0, num_kv_heads=0, head_dim=0, d_ff=0,
-                    ssm_heads=4, ssm_state=16, ssm_chunk=32, expand=2)
-    if cfg.family == "moe":
-        over.update(num_experts=4, top_k=2, moe_d_ff=128,
-                    num_shared_experts=min(1, cfg.num_shared_experts))
-        if cfg.prefix_kinds:
-            over.update(prefix_kinds=cfg.prefix_kinds[:1], scan_repeats=1,
-                        num_layers=2)
-        if cfg.kv_lora_rank:
-            over.update(num_kv_heads=4, kv_lora_rank=32, q_lora_rank=48,
-                        rope_head_dim=16, nope_head_dim=32, v_head_dim=32)
-    if cfg.family == "hybrid":
-        over.update(scan_repeats=1, suffix_kinds=("rglru",), num_layers=4,
-                    lru_width=128, num_kv_heads=1)
-    if cfg.family == "vlm":
-        over.update(num_vision_tokens=8, num_kv_heads=1)
-    if cfg.family == "audio":
-        over.update(encoder_layers=2, encoder_seq=32, num_kv_heads=4)
-    if cfg.scan_pattern and len(cfg.scan_pattern) > 1:
-        # one repeat of a multi-kind pattern (gemma2: local + global)
-        over.update(scan_repeats=max(1, over["num_layers"]
-                                     // len(cfg.scan_pattern)))
-        over["num_layers"] = over["scan_repeats"] * len(cfg.scan_pattern) \
-            + len(over.get("suffix_kinds", ()))
-    return cfg.scaled(**over)
 
 
 def init_params(cfg, generator: torch.Generator, device):

@@ -1,6 +1,5 @@
-"""Model API: the entry points the runtime calls, family by family, and
-the cache-layout probe (port of the serving half of
-``repro.models.api``)."""
+"""Model API: the entry points the runtime and the trainer call, family by
+family, and the cache-layout probe (port of ``repro.models.api``)."""
 
 from __future__ import annotations
 
@@ -38,6 +37,7 @@ class ModelAPI:
     # (cfg, params, lane cache, tokens (B, 1), pos, *, kv_quant, per_lane)
     init_cache_specs: Callable[..., Any]     # (cfg, batch, max_len)
     init_cache: Callable[..., Any]           # (cfg, batch, max_len, device)
+    loss_fn: Callable[..., Any]              # (cfg, params, batch) -> loss
     prefill_chunk: Callable[..., Any] | None = None
     # (cfg, params, lane cache, tokens (B, S), pos, *, kv_quant); the
     # gathered backend's chunk step over a standalone batch-1 cache; None
@@ -127,12 +127,14 @@ def get_model(cfg) -> ModelAPI:
                         forward=encdec.forward, prefill=encdec.prefill,
                         decode_step=encdec.decode_step,
                         init_cache_specs=encdec.init_cache_specs,
-                        init_cache=encdec.init_cache)
+                        init_cache=encdec.init_cache,
+                        loss_fn=encdec.loss_fn)
     return ModelAPI(init_params=transformer.init_params,
                     forward=transformer.forward, prefill=transformer.prefill,
                     decode_step=transformer.decode_step,
                     prefill_chunk=transformer.prefill_chunk,
                     init_cache_specs=transformer.init_cache_specs,
                     init_cache=transformer.init_cache,
+                    loss_fn=transformer.loss_fn,
                     mixed_step=transformer.mixed_step,
                     verify_step=transformer.verify_step)

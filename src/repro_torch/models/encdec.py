@@ -2,8 +2,8 @@
 the audio frontend is a stub).
 
 The encoder is the bidirectional transformer stack over precomputed frame
-embeddings (B, Se, D); the decoder is causal with cross-attention.  As in
-the reference, positions use the shared substrate's RoPE rather than
+embeddings (B, Se, D); the decoder is causal with cross-attention, and
+:func:`loss_fn` trains both.  As in the reference, positions use the shared substrate's RoPE rather than
 Whisper's sinusoids.  Serving prefills the decoder prompt with the encoder
 run once, caching each layer's cross K/V ``(B, Se, KH, hd)`` beside its
 self-attention KV, and decodes against the cached cross K/V.  Caches are
@@ -15,10 +15,11 @@ from __future__ import annotations
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.models.layers import (embed_init, rms_norm, rms_norm_init,
-                                       softcap)
+from repro_torch.models.layers import (chunked_cross_entropy, embed_init,
+                                       rms_norm, rms_norm_init, softcap)
 from repro_torch.models.transformer import (_stack, block_apply,
-                                            block_cache_spec, block_init)
+                                            block_cache_spec, block_init,
+                                            remat_wrap)
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -48,11 +49,25 @@ def _layers(stacked: dict):
 
 
 def encode(cfg, params, frame_embeds: torch.Tensor) -> torch.Tensor:
-    """Frame embeddings (B, Se, D) -> the normed encoder output."""
+    """Frame embeddings (B, Se, D) -> the normed encoder output (each
+    layer recomputed in the backward under ``cfg.remat``)."""
     x = frame_embeds.to(cfg.torch_dtype)
+    layer = remat_wrap(cfg, lambda p, x: block_apply("bidir", cfg, p, x)[0])
     for p in _layers(params["enc_scan"]):
-        x, _ = block_apply("bidir", cfg, p["b0"], x)
+        x = layer(p["b0"], x)
     return rms_norm(params["enc_norm"], x, cfg.norm_eps)
+
+
+def _decoder_hidden(cfg, params, tokens, frame_embeds):
+    """Encoder, then the causal decoder over ``tokens`` with no cache ->
+    the final-normed hidden (B, S, D)."""
+    enc_out = encode(cfg, params, frame_embeds)
+    layer = remat_wrap(cfg, lambda p, x: block_apply(
+        "dec", cfg, p, x, enc_out=enc_out)[0])
+    x = params["embed"][tokens]
+    for p in _layers(params["scan"]):
+        x = layer(p["b0"], x)
+    return rms_norm(params["final_norm"], x, cfg.norm_eps)
 
 
 def _logits(cfg, params, x):
@@ -61,13 +76,18 @@ def _logits(cfg, params, x):
 
 def forward(cfg, params, tokens, frame_embeds):
     """Scoring forward -> (logits (B, S, V) f32, aux = 0)."""
-    enc_out = encode(cfg, params, frame_embeds)
-    x = params["embed"][tokens]
-    for p in _layers(params["scan"]):
-        x, _ = block_apply("dec", cfg, p["b0"], x, enc_out=enc_out)
-    x = rms_norm(params["final_norm"], x, cfg.norm_eps)
+    x = _decoder_hidden(cfg, params, tokens, frame_embeds)
     return _logits(cfg, params, x), torch.zeros((), dtype=torch.float32,
                                                 device=x.device)
+
+
+def loss_fn(cfg, params, batch) -> torch.Tensor:
+    """Chunked CE of the decoder over ``batch`` (``tokens``, ``labels``,
+    ``frame_embeds``), the tied embedding as the head."""
+    hidden = _decoder_hidden(cfg, params, batch["tokens"],
+                             batch["frame_embeds"])
+    return chunked_cross_entropy(hidden, params["embed"].T, batch["labels"],
+                                 softcap_val=cfg.final_logit_softcap)
 
 
 def init_cache_specs(cfg, batch: int, max_len: int) -> dict:

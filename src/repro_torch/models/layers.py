@@ -1,4 +1,4 @@
-"""Core layers: init helpers, norms, RoPE, MLPs (port of
+"""Core layers: init helpers, norms, RoPE, MLPs, losses (port of
 ``repro.models.layers``).
 
 Functional style as in the reference: params are dicts of tensors and
@@ -8,8 +8,11 @@ every layer is ``f(params, x, ...) -> y``.  The projections are plain
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.binarize import binarize_weights
 
@@ -110,3 +113,44 @@ def mlp_apply(p: dict, x: torch.Tensor, act: str,
     if act == "geglu":
         return lin(p["down"], gelu_tanh(lin(p["gate"], x)) * lin(p["up"], x))
     return lin(p["down"], gelu_tanh(lin(p["up"], x)))
+
+
+# ---------------------------------------------------------------------------
+# losses
+# ---------------------------------------------------------------------------
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean CE over all positions; logits (..., V) taken in f32."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return (logz - gold).mean()
+
+
+def _chunk_ce_sum(xc, head, lc, softcap_val: float) -> torch.Tensor:
+    logits = softcap((xc @ head).float(), softcap_val)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, lc[..., None].long())[..., 0]
+    return (logz - gold).sum()
+
+
+def chunked_cross_entropy(x: torch.Tensor, head: torch.Tensor,
+                          labels: torch.Tensor, *, softcap_val: float = 0.0,
+                          chunk: int = 256) -> torch.Tensor:
+    """CE of ``softcap(x @ head)`` without the full (B, S, V) logits.
+
+    The sequence is cut into ``gcd(S, chunk)``-long chunks and each
+    chunk's summed CE is recomputed in the backward
+    (``torch.utils.checkpoint``), so one (B, chunk, V) block of logits is
+    live at a time and the head's gradient accumulates over the chunks.
+    The gold logit is gathered from the chunk's logits, as the reference
+    does (its note: a gather from the head scatters into the whole
+    (D, V) head in the backward, once a chunk)."""
+    b, s, _ = x.shape
+    chunk = math.gcd(s, chunk)
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c in range(0, s, chunk):
+        total = total + checkpoint(_chunk_ce_sum, x[:, c:c + chunk], head,
+                                   labels[:, c:c + chunk], softcap_val,
+                                   use_reentrant=False)
+    return total / (b * s)

@@ -24,21 +24,25 @@ new K/V through the codec, as the gathered backend does under
 ``kv_codec="cluster"``), and the ragged
 :func:`mixed_step` of the in-kernel backend over page pools, fp or int8
 code pools plus a scale-pool tree, with rolling-window lanes beside them.
-Caches are updated in place.  Other block kinds raise
+Caches are updated in place.  Training is :func:`loss_fn` through
+autograd, with each scan repeat recomputed in the backward under
+``cfg.remat`` (:func:`remat_wrap`).  Other block kinds raise
 ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.layers import (embed_init, mlp_apply, mlp_init,
-                                       rms_norm, rms_norm_init, softcap)
+from repro_torch.models.layers import (chunked_cross_entropy, embed_init,
+                                       mlp_apply, mlp_init, rms_norm,
+                                       rms_norm_init, softcap)
 from repro_torch.tree import (params_from_numpy, tree_leaves,  # noqa: F401
                               tree_map)
 
@@ -57,6 +61,22 @@ def check_supported(cfg) -> None:
         raise NotImplementedError(
             f"{cfg.name}: block kinds {missing} are not ported to "
             f"repro_torch yet")
+
+
+def remat_wrap(cfg, fn):
+    """``fn`` under ``torch.utils.checkpoint`` when ``cfg.remat``: a scan
+    repeat keeps only its input and is recomputed in the backward.  The
+    reference's ``remat_policy="dots"`` (keep the matmul outputs) is a jax
+    checkpoint policy with no torch counterpart and is taken as
+    ``"full"``.  Without autograd recording (serving) ``fn`` runs as is."""
+    if not cfg.remat:
+        return fn
+
+    def wrapped(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False)
+    return wrapped
 
 
 def _attn_kind(kind: str) -> str:
@@ -302,16 +322,24 @@ def _run_stack(cfg, params, cache, x, *, pos=None, prefix_len: int = 0,
             else tree_map(leaf, sub(scales)),
             kv_quant=kv_quant, per_lane=per_lane)
 
-    auxes = []
-    for i, kind in enumerate(cfg.prefix_kinds):
-        x, a = block(kind, params["prefix"][i], x, lambda t: t["prefix"][i])
-        auxes.append(a)
-    for r in range(cfg.scan_repeats):
+    def repeat(r, x):
+        out = []
         for i, kind in enumerate(cfg.scan_pattern):
             x, a = block(kind, tree_map(lambda t: t[r],
                                         params["scan"][f"b{i}"]), x,
                          lambda t: t["scan"][f"b{i}"], lambda a: a[r])
-            auxes.append(a)
+            out.append(a)
+        return x, out
+
+    auxes = []
+    for i, kind in enumerate(cfg.prefix_kinds):
+        x, a = block(kind, params["prefix"][i], x, lambda t: t["prefix"][i])
+        auxes.append(a)
+    # the scoring forward (no cache) recomputes a repeat in the backward
+    run = repeat if cache is not None else remat_wrap(cfg, repeat)
+    for r in range(cfg.scan_repeats):
+        x, a = run(r, x)
+        auxes += a
     for i, kind in enumerate(cfg.suffix_kinds):
         x, a = block(kind, params["suffix"][i], x, lambda t: t["suffix"][i])
         auxes.append(a)
@@ -336,6 +364,22 @@ def forward(cfg, params, tokens, *, vision_embeds=None):
     """Scoring forward -> (logits (B, S*, V) f32, aux loss)."""
     x, aux = backbone(cfg, params, tokens, vision_embeds=vision_embeds)
     return _unembed(cfg, params, x), aux
+
+
+def loss_fn(cfg, params, batch) -> torch.Tensor:
+    """Training loss of ``batch`` (``tokens``, ``labels`` (B, S), and
+    paligemma's ``vision_embeds``): the chunked CE of the text positions
+    (the vision rows are dropped before the head) plus 0.01 x the summed
+    MoE aux losses."""
+    vision = batch.get("vision_embeds")
+    hidden, aux = backbone(cfg, params, batch["tokens"],
+                           vision_embeds=vision)
+    if vision is not None:
+        hidden = hidden[:, vision.shape[1]:]
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    ce = chunked_cross_entropy(hidden, head, batch["labels"],
+                               softcap_val=cfg.final_logit_softcap)
+    return ce + 0.01 * aux
 
 
 def prefill(cfg, params, tokens, cache, *, vision_embeds=None):

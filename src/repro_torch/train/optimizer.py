@@ -69,11 +69,15 @@ def _global_norm(tree) -> torch.Tensor:
 
 
 @torch.no_grad()
-def apply_updates(params, grads, state, oc: OptConfig):
+def apply_updates(params, grads, state, oc: OptConfig, *,
+                  donate: bool = False):
     """One AdamW step -> (new_params, new_state, metrics).
 
     ``grads`` has the params' tree; a leaf the loss does not use carries
-    zeros (it still decays, and counts in the norm)."""
+    zeros (it still decays, and counts in the norm).  ``donate`` writes
+    the new params and moments into ``params`` and ``state``'s tensors a
+    leaf at a time (the same arithmetic), so one leaf's temporaries are
+    live at once instead of a second copy of the whole state."""
     step = state["step"] + 1
     lr = lr_schedule(oc)(step)
     gnorm = _global_norm(grads)
@@ -101,6 +105,13 @@ def apply_updates(params, grads, state, oc: OptConfig):
     if len({len(f) for f in flat}) != 1:
         raise ValueError("grads and optimizer state must have the params' "
                          "tree")
+    if donate:
+        for leaves in zip(*flat):
+            for old, new in zip((leaves[0], leaves[2], leaves[3]),
+                                upd(*leaves)):
+                old.copy_(new)
+        state["step"].copy_(step)
+        return params, state, {"lr": lr, "grad_norm": gnorm}
     new_p, mu, nu = zip(*(upd(*leaves) for leaves in zip(*flat)))
     new_state = {"step": step, "mu": tree_unflatten(params, mu),
                  "nu": tree_unflatten(params, nu)}

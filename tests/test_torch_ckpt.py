@@ -1,5 +1,6 @@
-"""The port's checkpoints: the mesh-free cases of ``tests/test_ckpt.py::
-TestCheckpoint`` on tensor trees, and the on-disk layout shared with
+"""The port's checkpoints: the cases of ``tests/test_ckpt.py::
+TestCheckpoint`` on tensor trees (the sharded restore on a ``gloo``
+world of one), and the on-disk layout shared with
 ``repro.ckpt.checkpoint``: a checkpoint one package saves, the other
 restores leaf for leaf, Huffman-compressed ``w3`` leaves included (exact:
 both decode the same stream to sign x the same stored scale)."""
@@ -14,6 +15,8 @@ import torch
 
 from repro.ckpt import checkpoint as jckpt
 from repro_torch.ckpt import checkpoint as ckpt
+from repro_torch.dist import sharding as shd
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -110,8 +113,14 @@ class TestCheckpoint:
         with pytest.raises(FileNotFoundError):
             ckpt.restore(str(tmp_path), t, device="cpu")
         ckpt.save(t, str(tmp_path), step=3)
-        with pytest.raises(NotImplementedError, match="dist"):
-            ckpt.restore(str(tmp_path), t, device="cpu", shardings=object())
+        mesh = make_host_mesh(device="cpu")     # a gloo world of one
+        try:
+            sharded, _ = ckpt.restore(str(tmp_path), t, shardings=shd
+                                      .params_shardings(t, mesh, fsdp=True))
+        finally:
+            torch.distributed.destroy_process_group()
+        for got, want in zip(tree_leaves(sharded), tree_leaves(t)):
+            torch.testing.assert_close(got.to_local(), want, rtol=0, atol=0)
         bad = {**t, "opt": {**t["opt"], "mu": {"x": torch.zeros(4)}}}
         with pytest.raises(ValueError, match="shape"):
             ckpt.restore(str(tmp_path), bad, device="cpu")
@@ -162,3 +171,54 @@ def test_reference_checkpoint_restores_in_port(tmp_path, rng, compress):
         for k in a.files:
             assert a[k].dtype == b[k].dtype
             assert a[k].tobytes() == b[k].tobytes()
+
+
+def _bf16_tree(rng):
+    """An LM training state's dtypes: bf16 params, f32 moments, an int32
+    step (numpy, the reference's bf16 through ``ml_dtypes``)."""
+    import ml_dtypes
+    bf16 = lambda *s: rng.standard_normal(s).astype(ml_dtypes.bfloat16)  # noqa: E731
+    return {"params": {"embed": bf16(32, 16), "scan": {"w": bf16(4, 8, 16)}},
+            "opt": {"mu": {"embed": rng.standard_normal((32, 16)).astype(
+                np.float32)}, "step": np.asarray(5, np.int32)}}
+
+
+def _to_torch(a):
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
+def test_bf16_checkpoint_layout_and_restore(tmp_path, rng):
+    """bf16 leaves are stored as the reference stores them (its
+    ``ml_dtypes.bfloat16`` arrays: raw 2-byte words under the manifest dtype
+    "bfloat16"), byte for byte, and restore bit for bit in the port, from
+    either package's files and sharded on a gloo world of one."""
+    t = _bf16_tree(rng)
+    jckpt.save(t, str(tmp_path / "ref"), step=2)
+    mine = tree_map(_to_torch, t)
+    ckpt.save(mine, str(tmp_path / "port"), step=2)
+    with open(tmp_path / "ref" / "step_2" / "manifest.json") as f, \
+            open(tmp_path / "port" / "step_2" / "manifest.json") as g:
+        assert f.read() == g.read()
+    with np.load(tmp_path / "ref" / "step_2" / "host0.npz") as a, \
+            np.load(tmp_path / "port" / "step_2" / "host0.npz") as b:
+        assert sorted(a.files) == sorted(b.files)
+        for k in a.files:
+            assert a[k].dtype == b[k].dtype
+            assert a[k].tobytes() == b[k].tobytes()
+    like = tree_map(lambda x: torch.empty_like(x, device="meta"), mine)
+    for where in ("ref", "port"):
+        restored, step = ckpt.restore(str(tmp_path / where), like,
+                                      device="cpu")
+        assert step == 2
+        _assert_trees_equal(restored, mine)
+    mesh = make_host_mesh(device="cpu")
+    try:
+        sharded, _ = ckpt.restore(
+            str(tmp_path / "ref"), like,
+            shardings=shd.params_shardings(like, mesh, fsdp=True))
+    finally:
+        torch.distributed.destroy_process_group()
+    _assert_trees_equal([x.to_local() for x in tree_leaves(sharded)],
+                        tree_leaves(mine))

@@ -109,6 +109,10 @@ _PORT_MODULES = {
     "repro_torch.models.rglru", "repro_torch.models.encdec",
     "repro_torch.configs.mamba2_780m", "repro_torch.configs.recurrentgemma_2b",
     "repro_torch.configs.paligemma_3b", "repro_torch.configs.whisper_large_v3",
+    "repro_torch.dist", "repro_torch.dist.sharding",
+    "repro_torch.dist.compression_comm", "repro_torch.dist.fault",
+    "repro_torch.launch.mesh", "repro_torch.launch.steps",
+    "repro_torch.launch.train",
 }
 
 
@@ -122,5 +126,5 @@ def test_port_imports_neither_jax_nor_repro():
                          timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
     names, bad = out.stdout.split("|")
-    assert _PORT_MODULES <= set(names.split()) and len(names.split()) >= 48
+    assert _PORT_MODULES <= set(names.split()) and len(names.split()) >= 55
     assert bad.strip() == "[]", out.stdout
